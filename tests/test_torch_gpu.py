@@ -1,0 +1,86 @@
+"""Kernels K1 and K2 against their plain PyTorch versions on a CUDA card.
+
+These tests need the card (the CUDA kernels have no CPU mode) and skip
+without one.  The file imports no JAX, so it also runs where JAX is not
+installed; there, skip the JAX test configuration with
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Boxes, flags, counts and carries must be equal; means within
+``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vhr_tpu.utils.synth import SynthSpec, synthesize
+
+from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+from vhr_tpu_torch.ops.reduce import roi_channel_means
+
+TOL = dict(rtol=1e-6, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def gpu_clip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    v = synthesize(SynthSpec(duration_s=2.0, height=104, width=128,
+                             bpm=80.0, motion_amplitude=1.0, noise_std=4.0,
+                             dropout_frames=(20, 21)))
+    return torch.as_tensor(v.frames).cuda(), torch.as_tensor(v.face_boxes)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(row_block=64),
+    dict(row_block=64, detect_every=4, gate_margin=0.5, rescan_every=3),
+    dict(row_block=8, detect_row_pool=8, gate_margin=0.2),
+    dict(row_block=128, detect_row_pool=2, detect_every=3, seq_len=25),
+])
+def test_k1_matches_plain(gpu_clip, kw):
+    frames = gpu_clip[0]
+    carry = fused_cuda.init_carry(frames.device)
+    before = fused_cuda.LAUNCHES
+    got, got_c = fused_cuda.fused_detect_roi_carry(frames, carry, **kw)
+    assert fused_cuda.LAUNCHES == before + 1
+    want, want_c = fused_cuda.fused_detect_roi_plain(frames, carry, **kw)
+    torch.cuda.synchronize()
+    _same(tuple(got) + (got_c,), tuple(want) + (want_c,))
+
+
+@pytest.mark.gpu
+def test_k1_chained_launches_match_plain(gpu_clip):
+    frames = gpu_clip[0]
+    kw = dict(row_block=64, detect_every=2, gate_margin=0.5)
+    carry = fused_cuda.init_carry(frames.device)
+    for s, n in [(0, 17), (17, 43)]:
+        got, carry_g = fused_cuda.fused_detect_roi_carry(
+            frames, carry, t_start=s, t_len=n, **kw)
+        want, carry_w = fused_cuda.fused_detect_roi_plain(
+            frames, carry, t_start=s, t_len=n, **kw)
+        _same(tuple(got) + (carry_g,), tuple(want) + (carry_w,))
+        carry = carry_g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flat", [False, True])
+def test_k2_matches_plain(gpu_clip, flat):
+    frames, boxes = gpu_clip
+    T, H, W, _ = frames.shape
+    rng = np.random.default_rng(0)
+    rois = np.concatenate([boxes.numpy(), rng.integers(-10, 140, (T, 4))])
+    rois = torch.as_tensor(rois[::2].astype(np.int32)).cuda()
+    rois[0] = 0
+    rois[1] = torch.tensor([50, 60, 40, 90])
+    x = frames.reshape(T, H, W * 3) if flat else frames
+    got = roi_means_cuda.roi_channel_means_cuda(x, rois)
+    want = roi_channel_means(frames, rois)
+    torch.cuda.synchronize()
+    _same(got, want)

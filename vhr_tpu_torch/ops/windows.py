@@ -1,0 +1,123 @@
+"""Sliding-window BPM estimation over a whole signal at once.
+
+Port of ``vhr_tpu/ops/windows.py``.  Frame ``i`` sees the deque
+``signal[max(0, i-W+1) : i+1]``: while the deque grows (lengths A..W-1)
+an exact masked DFT evaluates every growing-length spectrum on its own
+frequency grid (the ramp); once full, one batched rfft over all length-W
+windows (the steady part).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from vhr_tpu.config import HRBand
+
+from ..dsp import spectral
+
+__all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft", "rolling_bpm"]
+
+
+def sliding_windows(x: torch.Tensor, length: int) -> torch.Tensor:
+    """All length-``length`` windows of ``(T, ...)`` -> ``(T-L+1, L, ...)``."""
+    T = x.shape[0]
+    idx = (torch.arange(T - length + 1, device=x.device)[:, None]
+           + torch.arange(length, device=x.device)[None, :])
+    return x[idx]
+
+
+class RollingBPM(NamedTuple):
+    bpm: torch.Tensor     # (T,) per-frame estimate (0 where invalid)
+    valid: torch.Tensor   # (T,) bool — False during acquisition / empty band
+
+
+def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
+              lengths: np.ndarray, chunk: int = 64) -> tuple:
+    """Exact DFT peak for growing windows ``x[:N]`` for each N in lengths.
+
+    Evaluated ``chunk`` lengths at a time, so the ``(chunk, K, N)`` angle
+    tensor stays small.  The float32 expressions keep the JAX order of
+    operations.
+    """
+    w_max = int(lengths.max())
+    xs = x[:w_max]
+    dt, dev = x.dtype, x.device
+    n = torch.arange(w_max, dtype=dt, device=dev)
+    k_max = int(np.floor(band.high_hz * w_max / fps))
+    k = torch.arange(k_max + 1, dtype=dt, device=dev)
+    bpms, valids = [], []
+    for s in range(0, len(lengths), chunk):
+        N = torch.as_tensor(lengths[s:s + chunk], dtype=dt,
+                            device=dev)[:, None]                  # (B, 1)
+        keep = n[None, :] < N                                      # (B, n)
+        mean = torch.where(keep, xs, 0.0).sum(-1, keepdim=True) / N
+        xm = torch.where(keep, xs - mean, 0.0)                     # (B, n)
+        # scalar / tensor in PyTorch is a multiplication by the reciprocal;
+        # a true division rounds like the JAX expression.
+        ang = (torch.full_like(N, -2.0 * math.pi) / N)[:, :, None] \
+            * k[None, :, None] * n[None, None, :]                  # (B, K, n)
+        re = (torch.cos(ang) * xm[:, None, :]).sum(-1)
+        im = (torch.sin(ang) * xm[:, None, :]).sum(-1)
+        mag = torch.sqrt(re * re + im * im)                        # (B, K)
+        freq = k[None, :] * (torch.full_like(N, fps) / N)
+        half = torch.floor((N - 1.0) / 2.0)
+        mask = ((freq >= band.low_hz) & (freq <= band.high_hz)
+                & (k[None, :] >= 1.0) & (k[None, :] <= half))
+        banded = torch.where(mask, mag, torch.full_like(mag, float("-inf")))
+        idx = torch.argmax(banded, dim=-1)
+        bpms.append(torch.gather(freq, 1, idx[:, None])[:, 0] * 60.0)
+        valids.append(mask.any(-1))
+    return torch.cat(bpms), torch.cat(valids)
+
+
+def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
+                    window_len: int, acquisition_len: int) -> RollingBPM:
+    """Per-frame FFT-peak BPM with the reference's deque semantics.
+
+    Frame ``i`` sees ``signal[max(0, i-window_len+1) : i+1]`` demeaned and
+    produces an estimate once at least ``acquisition_len`` samples exist.
+    """
+    T = signal.shape[0]
+    x = signal if signal.is_floating_point() else signal.to(torch.float32)
+    bpm = torch.zeros((T,), dtype=x.dtype, device=x.device)
+    valid = torch.zeros((T,), dtype=torch.bool, device=x.device)
+
+    first = acquisition_len - 1
+    if first >= T:
+        return RollingBPM(bpm, valid)
+
+    ramp_end = min(window_len - 1, T - 1)
+    if ramp_end >= first:
+        lengths = np.arange(first + 1, ramp_end + 2)
+        r_bpm, r_valid = _ramp_bpm(x, fps, band, lengths)
+        # The reference's estimate_bpm returns None for N < 8.
+        r_valid = r_valid & torch.as_tensor(lengths >= 8, device=x.device)
+        bpm[first:ramp_end + 1] = r_bpm
+        valid[first:ramp_end + 1] = r_valid
+
+    if T >= window_len:
+        wins = sliding_windows(x, window_len)                  # (T-W+1, W)
+        wins = wins - wins.mean(-1, keepdim=True)
+        est = spectral.estimate_bpm(wins, fps, band)
+        bpm[window_len - 1:] = est.bpm
+        valid[window_len - 1:] = est.valid & (window_len >= 8)
+
+    return RollingBPM(bpm=bpm, valid=valid)
+
+
+def rolling_bpm(signal: torch.Tensor, fps: float, band: HRBand,
+                window_len: int, acquisition_len: int,
+                estimator: str = "fft",
+                segment_seconds: float = 9.0) -> RollingBPM:
+    """Dispatch on ``PipelineConfig.estimator``: ``"fft"`` | ``"welch"``."""
+    if estimator == "fft":
+        return rolling_bpm_fft(signal, fps, band, window_len, acquisition_len)
+    if estimator == "welch":
+        raise NotImplementedError(
+            "estimator='welch' is not ported yet (ROADMAP.md queue 1, item 2: "
+            "rolling_bpm_welch)")
+    raise ValueError(f"unknown estimator {estimator!r} (fft | welch)")
