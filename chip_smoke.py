@@ -5,25 +5,45 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. build the CUDA kernels from ``vhr_tpu_torch/csrc`` (nvcc, sm_90a);
+1. build the CUDA kernels from ``vhr_tpu_torch/csrc`` (one nvcc per source,
+   all started together, sm_90a);
 2. make a 1080p, T=960 (32 s at 30 fps) face clip on the card from a
    seeded ``torch.Generator``: a skin ellipse on a dark background whose
    green channel pulses at 72 BPM, with a small sway and sensor noise;
-3. hold each kernel against its plain PyTorch version on that clip: K2 on
+3. hold each kernel against its plain PyTorch version on the card: K2 on
    the clip's cheek ROIs plus random and degenerate ROIs, K1 over its knobs
-   (row pooling, detection cadence, gating, multi-stream ``seq_len``);
-   integer outputs must be equal, means within ``rtol=1e-6``;
-4. drive the offline green-channel measure at the flagship configuration
-   (30 s window / 10 s acquisition) in both forms — fused (K1,
-   ``detect_row_pool=8``) and detect-then-reduce with the K2 ROI kernel —
-   with the launch counters reset just before: every kernel must have been
-   launched, >= 95% of post-acquisition frames valid, and the BPM within
-   0.5 BPM (MAE) of the frame-at-a-time numpy reference run on the port's
-   own green trace;
-5. time both forms and each kernel against its plain version with CUDA
-   events (median of 3 after a warm-up, frames resident on the card).
+   (row pooling, detection cadence, gating, multi-stream ``seq_len``) on the
+   clip, K4 on 64 slots of 720p frames with random carries (fresh, tracked,
+   spent budgets) and random phases over the same knobs; integer outputs
+   must be equal, means within ``rtol=1e-6``;
+4. the offline green-channel measure at the flagship configuration (30 s
+   window / 10 s acquisition) in both forms — fused (K1,
+   ``detect_row_pool=8``) and detect-then-reduce with the K2 ROI kernel:
+   every kernel launched, >= 95% of post-acquisition frames valid, and the
+   BPM within 0.5 BPM (MAE) of the frame-at-a-time numpy reference run on
+   the port's own green trace;
+5. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+   use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
+   at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
+   and sway phase; slots attach in a staggered order, one slot skips every
+   tenth tick, one is detached and reattached.  K4 must have launched;
+   every slot must end ``bpm_valid`` within 8 BPM of its rate; two slots must
+   equal the single-stream fused live step on the same frames; a slot whose
+   ring is full must report the ``scipy.signal.welch`` peak of its last 500
+   filtered samples.  Then the same population through the skin-detector
+   tick (``use_fused=False``, ROI means on K2);
+6. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+   pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
+   and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
+   of the truth; then 10 one-frame round trips each;
+7. time each pool tick (device time, and wall time with the host-to-card
+   upload and the fetch) and each kernel against its plain version, with
+   CUDA events (median of 3 after a warm-up); both offline forms are timed
+   right after phase 4, the fused one again at the end.
 
-The line before the last is the kernels' JSON record, the last line
+The launch counters are set to 0 just before each of the main paths (the
+offline measure, the fused pool, the skin pool, the server) and read just
+after.  The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -35,6 +55,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -42,6 +63,15 @@ FPS = 30.0
 T, H, W = 960, 1080, 1920
 TRUTH_BPM = 72.0
 MEANS_RTOL, MEANS_ATOL = 1e-6, 1e-5
+# The serving pool: 64 slots of 720p.  A stream's causal band-pass starts
+# from a zero state, and its start-up transient spans its first ~100
+# samples at 30 fps; the Welch estimate over the 500-sample ring finds the
+# pulse once the ring holds no transient.  So every client streams more
+# than 600 frames: 760 ticks for the pool, 700 frames for each client of
+# the server.
+SLOTS, PH, PW, TICKS = 64, 720, 1280, 760
+SERVE_FRAMES, SERVE_RTT = 700, 10
+BPM_TOL = 8.0          # the JAX package's serving tests' bound
 
 
 def log(msg: str) -> None:
@@ -86,6 +116,46 @@ def make_clip(device, t: int, h: int, w: int, seed: int = SEED,
     return frames, boxes
 
 
+class Subjects:
+    """Live subjects, each with its own pulse rate and sway phase: frame k
+    of subject i (``frames(idx, k)``) is made on the card from a seed."""
+
+    def __init__(self, device, n: int, h: int, w: int, seed: int):
+        import torch
+
+        self.device, self.h, self.w = device, h, w
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.bpm = 55.0 + 55.0 * torch.rand(n, generator=self.gen,
+                                            device=device)
+        self.sway = 2 * math.pi * torch.rand(n, generator=self.gen,
+                                             device=device)
+        self.yy = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+        self.xx = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+
+    def frames(self, idx, k):
+        """``(len(idx), h, w, 3)`` u8: subject ``idx[j]``'s frame ``k[j]``."""
+        import torch
+
+        idx = torch.as_tensor(list(idx), device=self.device)
+        ts = torch.as_tensor(k, device=self.device,
+                             dtype=torch.float32) / FPS
+        n = idx.shape[0]
+        cx = 0.5 * self.w + 4.0 * torch.sin(2 * math.pi * 0.1 * ts
+                                            + self.sway[idx])
+        face = (((self.xx - cx[:, None, None]) / (0.16 * self.w)) ** 2
+                + ((self.yy - 0.45 * self.h) / (0.26 * self.h)) ** 2) <= 1.0
+        color = torch.tensor([105.0, 135.0, 180.0],
+                             device=self.device).expand(n, 3).clone()
+        color[:, 1] += 2.0 * torch.sin(2 * math.pi * self.bpm[idx] / 60.0
+                                       * ts)
+        img = torch.where(face[..., None], color[:, None, None, :],
+                          torch.tensor([60.0, 60.0, 60.0],
+                                       device=self.device))
+        img += torch.randint(0, 8, img.shape, generator=self.gen,
+                             device=self.device).to(torch.float32)
+        return img.clamp(0, 255).to(torch.uint8)
+
+
 def compare(name: str, got, want) -> float:
     """Equal integer/bool fields, means within tolerance; max |err|."""
     import torch
@@ -119,6 +189,207 @@ def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def wall_ms(fn, reps: int = 3, inner: int = 1) -> float:
+    """Median host milliseconds per call (each run ends synchronized)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / inner)
+    return statistics.median(times)
+
+
+def check_k4(dev) -> float:
+    """K4 against its plain version at 64 slots of 720p; max |err|."""
+    import torch
+    from vhr_tpu_torch.ops import fused_cuda
+
+    subj = Subjects(dev, SLOTS, PH, PW, SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    frames = subj.frames(range(SLOTS), torch.randint(
+        0, 900, (SLOTS,), generator=gen, device=dev).tolist())
+
+    def r(lo, hi):
+        return torch.randint(lo, hi, (SLOTS,), generator=gen, device=dev)
+
+    x1, y1 = r(0, PW // 2), r(0, PH // 2)
+    carry = torch.stack([x1, y1, x1 + r(PW // 16, PW // 2),
+                         y1 + r(PH // 16, PH // 2), r(0, 16), r(0, 2)],
+                        1).to(torch.int32)
+    q = SLOTS // 8
+    carry[:q] = 0                                       # fresh slots
+    carry[q:2 * q, 4] = 0                               # spent budgets
+    carry[q:3 * q, 5] = 1
+    carry[2 * q:3 * q, :4] = torch.tensor(              # tracked faces
+        [int(0.34 * PW), int(0.19 * PH), int(0.66 * PW), int(0.71 * PH)],
+        device=dev, dtype=torch.int32)
+    phase = r(0, 1000).to(torch.int32)
+    err = 0.0
+    for pool in (1, 8):
+        for every in (1, 4):
+            for gate in (None, 0.5):
+                kw = dict(detect_row_pool=pool, detect_every=every,
+                          gate_margin=gate)
+                got, got_c = fused_cuda.fused_detect_roi_slots(
+                    frames, carry, phase, **kw)
+                want, want_c = fused_cuda.fused_detect_roi_slots_plain(
+                    frames, carry, phase, **kw)
+                torch.cuda.synchronize()
+                err = max(err, compare(f"K4 {kw}", tuple(got) + (got_c,),
+                                       tuple(want) + (want_c,)))
+                log(f"[check] K4 == plain {kw}: det_valid "
+                    f"{int(got.det_valid.sum())}/{SLOTS}, roi_valid "
+                    f"{int(got.roi_valid.sum())}/{SLOTS}")
+    return err
+
+
+def run_pool(dev, use_fused: bool) -> dict:
+    """Drive a 64-slot pool of 720p subjects through TICKS ticks; check
+    every slot's BPM against its truth, two slots against the single-stream
+    live step, and full rings against scipy's Welch.  Returns the pool,
+    every slot's next frame (on the card) and the BPM errors."""
+    import numpy as np
+    import scipy.signal
+    import torch
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.pipeline import live
+
+    cfg = live.LiveConfig(fps=FPS, use_fused=use_fused)
+    pool = serving.BpmServer(cfg, n_slots=SLOTS)
+    subj = Subjects(dev, SLOTS, PH, PW, SEED + 4)
+    # Eight groups of slots attach 4 ticks apart (slots fill in order).
+    attach_at = [s * 8 // SLOTS * 4 for s in range(SLOTS)]
+    skipper, churn, churn_at = 5, 3, 20
+    chosen = (0, SLOTS // 3)      # an early and a late attacher
+    singles = {s: live.init_state(cfg, dev) for s in chosen}
+    local = [0] * SLOTS                   # frames each client has sent
+    hist = {s: [] for s in range(SLOTS)}  # (filtered, face_valid) per frame
+    last = {}
+    for t in range(TICKS):
+        for s in range(SLOTS):
+            if t == attach_at[s] and pool.attach() != s:
+                raise AssertionError("slots attach in order")
+        if t == churn_at:                 # a client leaves, a new one joins
+            pool.detach(churn)
+            if pool.attach() != churn:
+                raise AssertionError("the freed slot is reattached")
+            local[churn], hist[churn] = 0, []
+        send = [s for s in range(SLOTS) if t >= attach_at[s]
+                and not (s == skipper and t % 10 == 3)]
+        frames = subj.frames(send, [local[s] for s in send])
+        outs = pool.tick({s: frames[j] for j, s in enumerate(send)})
+        for j, s in enumerate(send):
+            local[s] += 1
+            o = outs[s]
+            hist[s].append((float(o.green_filtered), bool(o.face_valid)))
+            last[s] = o
+            if s in chosen:
+                singles[s], ref = live.step(singles[s], frames[j], cfg)
+                same = (bool(ref.face_valid) == bool(o.face_valid)
+                        and ref.box.tolist() == o.box.tolist()
+                        and abs(float(ref.green_raw)
+                                - float(o.green_raw)) <= 1e-5)
+                if not same:
+                    raise AssertionError(
+                        f"slot {s} tick {t}: pool {o} != single step {ref}")
+    truth = subj.bpm.tolist()
+    errs = [abs(float(last[s].bpm) - truth[s]) for s in range(SLOTS)]
+    valid = [bool(last[s].bpm_valid) for s in range(SLOTS)]
+    if not all(valid) or max(errs) > BPM_TOL:
+        raise AssertionError(f"pool BPM: valid {valid}, |err| {errs}")
+    count = pool.snapshot()["state.count"]
+    full = [s for s in range(SLOTS) if count[s] >= cfg.ring_len]
+    if not full:
+        raise AssertionError("no slot filled its ring")
+    band = (cfg.band.low_hz, cfg.band.high_hz)
+    nper = int(cfg.fps * cfg.welch_segment_seconds)
+    for s in full:
+        x = np.array([f for f, v in hist[s] if v][-cfg.ring_len:])
+        f, p = scipy.signal.welch(x, fs=cfg.fps, window="hann",
+                                  nperseg=nper, noverlap=nper // 2)
+        inb = (f >= band[0]) & (f <= band[1])
+        ref = float(f[inb][np.argmax(p[inb])] * 60.0)
+        if abs(float(last[s].bpm) - ref) >= 1e-3:
+            raise AssertionError(f"slot {s}: pool BPM {float(last[s].bpm)} "
+                                 f"!= scipy welch {ref}")
+    form = "fused" if use_fused else "skin"
+    log(f"[pool {form}] {SLOTS} slots x {TICKS} ticks at {PW}x{PH}: all "
+        f"bpm_valid, |BPM - truth| max {max(errs):.3f} mean "
+        f"{statistics.mean(errs):.3f}; slots {list(chosen)} == single "
+        f"step; {len(full)} full rings == scipy welch peak")
+    return dict(pool=pool, frames=subj.frames(range(SLOTS), local),
+                errs=errs)
+
+
+def run_server(dev) -> dict:
+    """Three clients (2 TCP, 1 WebSocket) against a 4-slot fused 720p pool
+    behind ``serve_forever``."""
+    import numpy as np
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.pipeline import live
+
+    pool = serving.BpmServer(live.LiveConfig(fps=FPS, use_fused=True),
+                             n_slots=4)
+    subj = Subjects(dev, 3, PH, PW, SEED + 5)
+    n = SERVE_FRAMES + SERVE_RTT
+    clips = [np.stack([subj.frames([i], [k])[0].cpu().numpy()
+                       for k in range(n)]) for i in range(3)]
+    srv = serving.serve_forever("127.0.0.1", 0, pool, frame_shape=(PH, PW))
+    port = srv.server_address[1]
+    results, errors = {}, []
+
+    def client(i, cls):
+        try:
+            c = cls("127.0.0.1", port)
+            for f in clips[i][:SERVE_FRAMES]:
+                c.send(f)
+            lines = [c.recv() for _ in range(SERVE_FRAMES)]
+            rtt = []
+            for f in clips[i][SERVE_FRAMES:]:
+                t0 = time.perf_counter()
+                c.send(f)
+                lines.append(c.recv())
+                rtt.append((time.perf_counter() - t0) * 1e3)
+            c.close()
+            results[i] = (lines, rtt)
+        except Exception as e:            # reported below, fails the phase
+            errors.append(f"client {i}: {e!r}")
+
+    kinds = [serving.BpmClient, serving.BpmClient, serving.WsBpmClient]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i, k))
+               for i, k in enumerate(kinds)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    srv.shutdown()
+    srv.server_close()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"server clients failed: {errors}")
+    truth = subj.bpm.tolist()
+    rtts = {}
+    for i, (lines, rtt) in results.items():
+        if [ln.get("seq") for ln in lines] != list(range(n)):
+            raise AssertionError(f"client {i}: replies out of order")
+        end = lines[SERVE_FRAMES - 1]
+        if not end["bpm_valid"] or abs(end["bpm"] - truth[i]) > BPM_TOL:
+            raise AssertionError(f"client {i}: {end} vs truth {truth[i]}")
+        rtts[kinds[i].__name__ + str(i)] = statistics.median(rtt)
+    log(f"[server] 3 clients x {SERVE_FRAMES} frames of {PW}x{PH} in "
+        f"{wall:.2f} s ({3 * SERVE_FRAMES / wall:.1f} frames/s through the "
+        f"sockets); last lines bpm_valid within {BPM_TOL} BPM; median "
+        f"one-frame round trip ms {rtts}")
+    return dict(wall=wall, rtt=rtts)
 
 
 def main() -> int:
@@ -197,8 +468,9 @@ def main() -> int:
                                      tuple(want) + (want_c,)))
         log(f"[check] K1 == plain {kw}: det_valid {int(got.det_valid.sum())}"
             f"/{T}, roi_valid {int(got.roi_valid.sum())}/{T}")
+    k4_err = check_k4(dev)
 
-    # 4. The main path at the flagship configuration, counters from 0.
+    # 4. The offline measure at the flagship configuration, counters from 0.
     acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
     roi_means_cuda.LAUNCHES = 0
     fused_cuda.LAUNCHES = 0
@@ -224,9 +496,9 @@ def main() -> int:
                                             trace.valid),) + results["roi"]
     torch.cuda.synchronize()
     launches = {"K1": fused_cuda.LAUNCHES, "K2": roi_means_cuda.LAUNCHES}
-    log(f"[main] kernel launches in the main-path run: {launches}")
+    log(f"[main] kernel launches in the offline run: {launches}")
     if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
+        raise AssertionError(f"a kernel of the offline path never launched: "
                              f"{launches}")
     for form, (green, bpm, valid) in results.items():
         n_valid, expect = int(valid.sum()), T - acq
@@ -247,12 +519,57 @@ def main() -> int:
             raise AssertionError(f"{form}: MAE vs reference {mae_ref} "
                                  f"over {len(idx)} frames")
 
-    # 5. Timing (CUDA events, frames resident on the card).
     log(f"[time] card: {card}")
     ms = {"fused": cuda_ms(fused_form), "roi": cuda_ms(xla_form)}
     for form, t_ms in ms.items():
         log(f"[time] {form} form end to end: {t_ms:.3f} ms / {T} frames = "
             f"{T / (t_ms / 1e3):.1f} frames/s, {t_ms * 1e3 / T:.3f} us/frame")
+
+    # 5. The serving pool, fused then skin-detector ticks, counters from 0.
+    fused_cuda.SLOT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fused_pool = run_pool(dev, use_fused=True)
+    torch.cuda.synchronize()
+    launches["K4"] = fused_cuda.SLOT_LAUNCHES
+    log(f"[pool fused] {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"K4={launches['K4']}")
+    if launches["K4"] < 1:
+        raise AssertionError("K4 never launched in the fused pool")
+    roi_means_cuda.LAUNCHES = 0
+    fused_cuda.SLOT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    skin_pool = run_pool(dev, use_fused=False)
+    torch.cuda.synchronize()
+    skin_k2 = roi_means_cuda.LAUNCHES
+    log(f"[pool skin] {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"K2={skin_k2} K4={fused_cuda.SLOT_LAUNCHES}")
+    if skin_k2 < 1:
+        raise AssertionError("K2 never launched in the skin-detector pool")
+
+    # 6. The front-end, counters from 0.
+    fused_cuda.SLOT_LAUNCHES = 0
+    served = run_server(dev)
+    log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
+    if fused_cuda.SLOT_LAUNCHES < 1:
+        raise AssertionError("K4 never launched behind the server")
+
+    # 7. Timing (CUDA events; frames resident on the card unless stated).
+    # The fused offline form is bound by host launches: timed again here,
+    # after the serving phases, it shows what the process's state costs.
+    t_ms = cuda_ms(fused_form)
+    log(f"[time] fused form end to end, after the serving phases: "
+        f"{t_ms:.3f} ms / {T} frames = {T / (t_ms / 1e3):.1f} frames/s")
+    for form, run in (("fused", fused_pool), ("skin", skin_pool)):
+        pool, last = run["pool"], run["frames"]
+        on_card = {s: last[s] for s in range(SLOTS)}
+        host = {s: f for s, f in enumerate(last.cpu().numpy())}
+        dev_ms = cuda_ms(lambda: pool.tick_async(on_card), inner=10)
+        e2e_ms = wall_ms(lambda: pool.tick(host), inner=10)
+        log(f"[time] pool {form} tick, {SLOTS} x {PW}x{PH}: device "
+            f"{dev_ms:.3f} ms ({SLOTS / (dev_ms / 1e3):.1f} slot-frames/s, "
+            f"frames on the card); wall with upload and fetch {e2e_ms:.3f} "
+            f"ms ({SLOTS / (e2e_ms / 1e3):.1f} slot-frames/s)")
+        run["ms"] = (dev_ms, e2e_ms)
     flag = dict(detect_row_pool=8)
     carry0 = fused_cuda.init_carry(dev)
     k1_ms = cuda_ms(lambda: fused_cuda.fused_detect_roi_carry(
@@ -262,9 +579,18 @@ def main() -> int:
     k2_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_cuda(
         frames, clip_rois), inner=10)
     k2_plain = cuda_ms(lambda: roi_channel_means(frames, clip_rois))
-    for k, a, b in [("K1", k1_ms, k1_plain), ("K2", k2_ms, k2_plain)]:
-        log(f"[time] {k}: kernel {a:.3f} ms ({a * 1e3 / T:.3f} us/frame), "
-            f"plain {b:.3f} ms ({b * 1e3 / T:.3f} us/frame)")
+    slot_frames = fused_pool["frames"]
+    state = fused_pool["pool"]._state
+    carry = torch.cat([state.last_box, state.hold_budget[:, None],
+                       state.has_last.to(torch.int32)[:, None]], 1)
+    k4_ms = cuda_ms(lambda: fused_cuda.fused_detect_roi_slots(
+        slot_frames, carry, state.frame_idx), inner=10)
+    k4_plain = cuda_ms(lambda: fused_cuda.fused_detect_roi_slots_plain(
+        slot_frames, carry, state.frame_idx))
+    for k, a, b, n in [("K1", k1_ms, k1_plain, T), ("K2", k2_ms, k2_plain, T),
+                       ("K4", k4_ms, k4_plain, SLOTS)]:
+        log(f"[time] {k}: kernel {a:.3f} ms ({a * 1e3 / n:.3f} us/frame), "
+            f"plain {b:.3f} ms ({b * 1e3 / n:.3f} us/frame)")
 
     if "jax" in sys.modules:
         raise AssertionError("the port's smoke run imported jax")
@@ -279,6 +605,11 @@ def main() -> int:
          "replaces": "vhr_tpu/ops/pallas_roi.py:167",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "fused_detect_roi_slots (K4)", "route": "cuda",
+         "source": "vhr_tpu_torch/csrc/fused_slots.cu",
+         "replaces": "vhr_tpu/ops/pallas_fused.py:479",
+         "launches": launches["K4"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain},
     ]}
     print(card)
     print(json.dumps(record))

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1, K2 and K4 against their plain PyTorch versions on a CUDA card.
 
 These tests need the card (the CUDA kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it also runs where JAX is not
@@ -84,3 +84,35 @@ def test_k2_matches_plain(gpu_clip, flat):
     want = roi_channel_means(frames, rois)
     torch.cuda.synchronize()
     _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(row_block=64),
+    dict(row_block=32, detect_every=4, gate_margin=0.5, rescan_every=3),
+    dict(row_block=8, detect_row_pool=8, gate_margin=0.2, detect_every=3),
+])
+def test_k4_matches_plain(gpu_clip, kw):
+    """Slots from random frames of the clip, with random carries (fresh,
+    tracked and spent-budget rows) and random phases."""
+    frames, boxes = gpu_clip
+    S = 12
+    rng = np.random.default_rng(len(kw))
+    pick = rng.integers(0, frames.shape[0], S)
+    x1, y1 = rng.integers(0, 64, S), rng.integers(0, 52, S)
+    carry = np.stack([x1, y1, x1 + rng.integers(10, 64, S),
+                      y1 + rng.integers(10, 52, S), rng.integers(0, 16, S),
+                      rng.integers(0, 2, S)], 1).astype(np.int32)
+    carry[0] = 0
+    carry[1, 4:] = [0, 1]
+    carry[2] = boxes[pick[2]].tolist() + [15, 1]
+    slots = frames[torch.as_tensor(pick).cuda()].contiguous()
+    carry = torch.as_tensor(carry).cuda()
+    phase = torch.as_tensor(rng.integers(0, 100, S).astype(np.int32)).cuda()
+    before = fused_cuda.SLOT_LAUNCHES
+    got, got_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase, **kw)
+    assert fused_cuda.SLOT_LAUNCHES == before + 1
+    want, want_c = fused_cuda.fused_detect_roi_slots_plain(slots, carry,
+                                                           phase, **kw)
+    torch.cuda.synchronize()
+    _same(tuple(got) + (got_c,), tuple(want) + (want_c,))

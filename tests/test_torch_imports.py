@@ -31,8 +31,19 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, check=True)
     n, has_jax, has_torch = out.stdout.split()
-    assert int(n) >= 14
+    assert int(n) >= 18
     assert has_jax == "False" and has_torch == "True"
+
+
+def test_serving_modules_import_without_jax():
+    """The serving slice's entry modules load no jax in a fresh
+    interpreter (the shared filter design is loaded by file path)."""
+    code = ("import sys; import vhr_tpu_torch.serving, "
+            "vhr_tpu_torch.pipeline.live, vhr_tpu_torch.dsp.design; "
+            "print('jax' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False"]
 
 
 def test_skin_config_equals_jax_field_for_field():

@@ -1,0 +1,194 @@
+"""Port parity for the live step (``vhr_tpu_torch.pipeline.live``).
+
+The same numpy inputs go through ``vhr_tpu``'s live functions (jitted, on
+the CPU, the fused kernel in interpret mode) and the port's.  Tolerances:
+
+- streaming SOS push and the live step's outputs: equal (the port rounds
+  each float32 operation as XLA:CPU does under ``jit``);
+- masked Welch: same peak bin and validity, mean PSD within ``rtol=1e-4``
+  (float32 matmul sums in another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vhr_tpu.dsp import design as jdesign
+from vhr_tpu.dsp import filters as jfilters
+from vhr_tpu.pipeline import live as jlive
+from vhr_tpu.utils.synth import SynthSpec, synthesize
+
+from vhr_tpu_torch import interop
+from vhr_tpu_torch.dsp import design, filters
+from vhr_tpu_torch.pipeline import live
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return synthesize(SynthSpec(duration_s=4.0, bpm=84.0, height=48,
+                                width=128, fps=10.0, noise_std=0.5))
+
+
+def _port_cfg(jcfg):
+    return interop.live_config_from_jax(dataclasses.asdict(jcfg))
+
+
+def _run_jax(jcfg, frames):
+    st, stp = jlive.init_state(jcfg), jlive.make_step(jcfg, donate=False)
+    outs = []
+    for f in frames:
+        st, o = stp(st, jnp.asarray(f))
+        outs.append(jax.tree.map(np.asarray, o))
+    return st, outs
+
+
+def _run_port(cfg, frames):
+    st, stp = live.init_state(cfg), live.make_step(cfg)
+    outs = []
+    for f in frames:
+        st, o = stp(st, torch.as_tensor(f))
+        outs.append(o)
+    return st, outs
+
+
+def _field(outs, k):
+    return np.array([np.asarray(getattr(o, k)) for o in outs])
+
+
+@pytest.mark.parametrize("fps,order", [(10.0, 4), (30.0, 4), (30.0, 2)])
+def test_sos_stream_push_matches_jax(fps, order):
+    sos = jdesign.sos_design("butterworth", fps, 40 / 60, 150 / 60, order)
+    assert np.array_equal(design.sos_design("butterworth", fps, 40 / 60,
+                                            150 / 60, order), sos)
+    rng = np.random.default_rng(0)
+    S = 512
+    z = (rng.normal(size=(S, sos.shape[0], 2))
+         * rng.uniform(0, 100, (S, 1, 1))).astype(np.float32)
+    x = (rng.normal(size=(S,)) * 100).astype(np.float32)
+    push = jax.jit(jax.vmap(lambda zz, xx: jfilters.sos_stream_push(sos, zz,
+                                                                    xx)))
+    y_ref, z_ref = map(np.asarray, push(z, x))
+    y, z_new = filters.sos_stream_push(sos, torch.as_tensor(z),
+                                       torch.as_tensor(x))
+    np.testing.assert_array_equal(y.numpy(), y_ref)
+    np.testing.assert_array_equal(z_new.numpy(), z_ref)
+    # Unbatched state, as one live stream holds it.
+    y1, z1 = filters.sos_stream_push(sos, torch.as_tensor(z[3]),
+                                     torch.as_tensor(x[3]))
+    assert y1.shape == () and float(y1) == y_ref[3]
+    np.testing.assert_array_equal(z1.numpy(), z_ref[3])
+
+
+@pytest.mark.parametrize("n_valid", [0, 100, 270, 271, 400, 500])
+def test_masked_welch_bpm_matches_jax(n_valid):
+    """A partly filled ring (zeros before the valid suffix), batched over
+    rings with their own fill levels."""
+    fps, N = 30.0, 500
+    rng = np.random.default_rng(n_valid)
+    t = np.arange(N) / fps
+    rings = np.stack([np.sin(2 * np.pi * (1.0 + 0.3 * k) * t)
+                      + 0.5 * rng.normal(size=N) for k in range(3)])
+    fills = np.array([n_valid, max(n_valid - 50, 0), N])
+    rings[np.arange(N)[None, :] < (N - fills)[:, None]] = 0.0
+    rings = rings.astype(np.float32)
+    bpm, valid = live._masked_welch_bpm(torch.as_tensor(rings),
+                                        torch.as_tensor(fills), fps,
+                                        live.LiveConfig().band, 9.0)
+    psd = live._masked_welch_psd(torch.as_tensor(rings),
+                                 torch.as_tensor(fills), fps,
+                                 live.LiveConfig().band, 9.0)[0]
+    for k in range(3):
+        ref_bpm, ref_valid = jlive._masked_welch_bpm(
+            jnp.asarray(rings[k]), jnp.int32(fills[k]), fps,
+            jlive.LiveConfig().band, 9.0)
+        ref_psd = jlive._masked_welch_psd(
+            jnp.asarray(rings[k]), jnp.int32(fills[k]), fps,
+            jlive.LiveConfig().band, 9.0)[0]
+        assert float(bpm[k]) == float(ref_bpm)
+        assert bool(valid[k]) == bool(ref_valid)
+        np.testing.assert_allclose(psd[k].numpy(), np.asarray(ref_psd),
+                                   rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("detect_every", [1, 3])
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_live_step_matches_jax(clip, use_fused, detect_every):
+    jcfg = jlive.LiveConfig(fps=clip.fps, use_fused=use_fused,
+                            detect_every=detect_every, ring_len=30)
+    jst, ref = _run_jax(jcfg, clip.frames)
+    st, got = _run_port(_port_cfg(jcfg), clip.frames)
+    for k in jlive.LiveOutput._fields:
+        np.testing.assert_array_equal(_field(got, k), _field(ref, k),
+                                      err_msg=k)
+    assert _field(got, "bpm_valid")[-1]
+    want = interop.live_state_to_numpy(
+        interop.live_state_from_numpy(jax.tree.map(np.asarray, jst)))
+    for k, v in interop.live_state_to_numpy(st).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+def test_live_step_continues_a_jax_stream(clip):
+    """Half a clip in JAX, the state handed over as numpy leaves, the rest in
+    the port: the joined outputs equal JAX over the whole clip."""
+    jcfg = jlive.LiveConfig(fps=clip.fps, use_fused=True, detect_every=2,
+                            gate_margin=0.5, ring_len=24)
+    _, ref = _run_jax(jcfg, clip.frames)
+    half = 17
+    jst, _ = _run_jax(jcfg, clip.frames[:half])
+    cfg = _port_cfg(jcfg)
+    st = interop.live_state_from_numpy(jax.tree.map(np.asarray, jst))
+    outs = []
+    for f in clip.frames[half:]:
+        st, o = live.step(st, torch.as_tensor(f), cfg)
+        outs.append(o)
+    for k in ("bpm", "bpm_valid", "green_filtered", "box", "face_valid"):
+        np.testing.assert_array_equal(_field(outs, k),
+                                      _field(ref[half:], k), err_msg=k)
+
+
+def test_pack_output_layout_matches_jax(clip):
+    jcfg = jlive.LiveConfig(fps=clip.fps, ring_len=20)
+    _, ref = _run_jax(jcfg, clip.frames[:25])
+    _, got = _run_port(_port_cfg(jcfg), clip.frames[:25])
+    packed = live.pack_output(got[-1])
+    want = np.asarray(jlive.pack_output(jax.tree.map(jnp.asarray, ref[-1])))
+    np.testing.assert_array_equal(packed.numpy(), want)
+    back = live.unpack_output(packed.numpy())
+    for k in jlive.LiveOutput._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(back, k)),
+                                      np.asarray(getattr(ref[-1], k)))
+
+
+@pytest.mark.parametrize("method", ["chrom", "pos", "omit", "adaptive"])
+def test_projection_methods_not_ported_yet(method):
+    cfg = live.LiveConfig(method=method)
+    with pytest.raises(NotImplementedError, match="projections"):
+        live.make_step(cfg)
+    with pytest.raises(NotImplementedError, match="projections"):
+        live.step(live.init_state(cfg),
+                  torch.zeros((48, 128, 3), dtype=torch.uint8),
+                  cfg)
+
+
+def test_live_config_checks():
+    with pytest.raises(NotImplementedError, match="color"):
+        live.make_step(live.LiveConfig(), transfer="i420")
+    with pytest.raises(ValueError, match="transfer"):
+        live.make_step(live.LiveConfig(), transfer="yuv")
+    with pytest.raises(ValueError, match="detector"):
+        live.make_step(live.LiveConfig(use_fused=True),
+                       detector=lambda f: None)
+    with pytest.raises(ValueError, match="cheek"):
+        live.make_step(live.LiveConfig(use_fused=True, roi_site="forehead"))
+    with pytest.raises(ValueError, match="unknown"):
+        live.make_step(live.LiveConfig(method="nope"))
+    # The configuration is the JAX one, field for field.
+    assert dataclasses.asdict(live.LiveConfig()) == \
+        dataclasses.asdict(jlive.LiveConfig())
+    bad = dict(dataclasses.asdict(jlive.LiveConfig()), extra=1)
+    with pytest.raises(ValueError, match="extra"):
+        interop.live_config_from_jax(bad)

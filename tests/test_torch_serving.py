@@ -1,0 +1,336 @@
+"""Port parity for the serving pool and its front-end
+(``vhr_tpu_torch.serving``) and for kernel K4's plain version.
+
+The same numpy frames go through ``vhr_tpu``'s pool (jitted on the CPU, the
+fused kernel in interpret mode) and the port's.  Tolerances:
+
+- K4 plain version against the Pallas kernel: boxes, flags, counts and
+  carries equal; means within ``rtol=1e-6, atol=1e-5`` (both sum exactly at
+  these sizes);
+- pool against pool: boxes, flags and BPM equal, raw green within ``1e-5``,
+  filtered green within ``5e-4`` (the JAX pool's batched program rounds the
+  SOS push a little differently from its own single-stream step; its tests
+  use the same bound, ``tests/test_serving.py``);
+- the port's pool against the port's single-stream step: equal.
+"""
+
+import dataclasses
+import json
+import socket
+import struct
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vhr_tpu import serving as jserving
+from vhr_tpu.ops import pallas_fused as jfused
+from vhr_tpu.pipeline import live as jlive
+from vhr_tpu.utils.synth import SynthSpec, synthesize
+
+from vhr_tpu_torch import interop, serving
+from vhr_tpu_torch.ops import fused_cuda
+from vhr_tpu_torch.pipeline import live
+
+MEANS_TOL = dict(rtol=1e-6, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def clips():
+    spec = dict(duration_s=4.0, height=48, width=128, fps=10.0,
+                noise_std=0.5)
+    return (synthesize(SynthSpec(bpm=84.0, **spec)).frames,
+            synthesize(SynthSpec(bpm=66.0, seed=7, **spec)).frames)
+
+
+def _cfgs(**kw):
+    jcfg = jlive.LiveConfig(fps=10.0, ring_len=30, **kw)
+    return jcfg, interop.live_config_from_jax(dataclasses.asdict(jcfg))
+
+
+def _drive(pool, clip_a, clip_b, start=0, stop=None):
+    """Two clients: a attaches at tick 0; b attaches at tick 3, skips every
+    fourth tick, and is detached and reattached (a fresh stream) at tick
+    22."""
+    outs = []
+    for t in range(start, stop or len(clip_a)):
+        if t in (0, 3):
+            pool.attach()
+        if t == 22:
+            pool.detach(1)
+            assert pool.attach() == 1
+        fr = {0: clip_a[t]}
+        if t >= 3 and t % 4 != 1:
+            fr[1] = clip_b[t]
+        outs.append(pool.tick(fr))
+    return outs
+
+
+def _assert_pools_equal(got, ref, filt_atol=5e-4):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r)
+        for s in r:
+            for k in ("bpm", "bpm_valid", "box", "face_valid", "choice"):
+                np.testing.assert_array_equal(np.asarray(getattr(g[s], k)),
+                                              np.asarray(getattr(r[s], k)),
+                                              err_msg=k)
+            np.testing.assert_allclose(g[s].green_raw, r[s].green_raw,
+                                       rtol=0, atol=1e-5)
+            np.testing.assert_allclose(g[s].green_filtered,
+                                       r[s].green_filtered, rtol=0,
+                                       atol=filt_atol)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(row_block=64),
+    dict(row_block=32, detect_every=4, gate_margin=0.5, rescan_every=3),
+    dict(row_block=8, detect_row_pool=8, gate_margin=0.2, detect_every=3),
+    dict(row_block=128, detect_row_pool=2, detect_every=2),
+])
+def test_k4_plain_matches_pallas(kw):
+    v = synthesize(SynthSpec(duration_s=1.0, height=104, width=128,
+                             bpm=80.0, motion_amplitude=1.0, fps=10.0))
+    S = 7
+    rng = np.random.default_rng(len(kw))
+    frames = v.frames[rng.integers(0, len(v.frames), S)]
+    x1, y1 = rng.integers(0, 64, S), rng.integers(0, 52, S)
+    carry = np.stack([x1, y1, x1 + rng.integers(10, 64, S),
+                      y1 + rng.integers(10, 52, S), rng.integers(0, 16, S),
+                      rng.integers(0, 2, S)], 1).astype(np.int32)
+    carry[0] = 0                                   # a fresh slot
+    carry[1, 4:] = [0, 1]                          # a spent budget
+    carry[2] = v.face_boxes[0].tolist() + [15, 1]  # a tracked face
+    phase = rng.integers(0, 100, S).astype(np.int32)
+    ref, ref_c = jfused.fused_detect_roi_slots(
+        jnp.asarray(frames), jnp.asarray(carry), jnp.asarray(phase),
+        interpret=True, **kw)
+    before = fused_cuda.SLOT_LAUNCHES
+    got, got_c = fused_cuda.fused_detect_roi_slots(
+        torch.as_tensor(frames), torch.as_tensor(carry),
+        torch.as_tensor(phase), **kw)
+    assert fused_cuda.SLOT_LAUNCHES == before      # CPU: no kernel launch
+    np.testing.assert_allclose(got.means.numpy(), np.asarray(ref.means),
+                               **MEANS_TOL)
+    for f in ("count", "boxes", "det_valid", "roi_valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
+
+
+@pytest.mark.parametrize("use_fused,detect_every", [(True, 3), (False, 1),
+                                                    (False, 2)])
+def test_pool_matches_jax_pool(clips, use_fused, detect_every):
+    jcfg, cfg = _cfgs(use_fused=use_fused, detect_every=detect_every)
+    ref = _drive(jserving.BpmServer(jcfg, n_slots=3, donate=False), *clips)
+    got = _drive(serving.BpmServer(cfg, n_slots=3), *clips)
+    _assert_pools_equal(got, ref)
+    assert got[-1][0].bpm_valid
+
+
+def test_pool_slots_equal_single_stream_step(clips):
+    """Each fused slot is the port's single-stream fused step on its own
+    frames, exactly: a late attacher detects on its own first frame."""
+    _, cfg = _cfgs(use_fused=True, detect_every=4, gate_margin=0.5)
+    pool = serving.BpmServer(cfg, n_slots=2)
+    a = pool.attach()
+    st_b = live.init_state(cfg)
+    for t, f in enumerate(clips[0]):
+        fr = {a: f}
+        if t == 2:
+            b = pool.attach()
+        if t >= 2:
+            fr[b] = clips[1][t - 2]
+        outs = pool.tick(fr)
+        if t >= 2:
+            st_b, ob = live.step(st_b, torch.as_tensor(clips[1][t - 2]), cfg)
+            for k in live.LiveOutput._fields:
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(ob, k)), getattr(outs[b], k),
+                    err_msg=k)
+    assert outs[b].face_valid
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_jax_snapshot_restores_into_port_pool(clips, use_fused, tmp_path):
+    """A JAX pool's np.savez snapshot restored into the port's pool: the next
+    ticks equal the JAX pool's.  And the other way round."""
+    jcfg, cfg = _cfgs(use_fused=use_fused, detect_every=2)
+    jpool = jserving.BpmServer(jcfg, n_slots=3, donate=False)
+    _drive(jpool, *clips, stop=25)
+    np.savez(tmp_path / "jax.npz", **jpool.snapshot())
+    pool = serving.BpmServer(cfg, n_slots=3)
+    with np.load(tmp_path / "jax.npz") as snap:
+        pool.restore(snap)
+    assert pool.active_slots == jpool.active_slots == [0, 1]
+    ref = _drive(jpool, *clips, start=25)
+    got = _drive(pool, *clips, start=25)
+    _assert_pools_equal(got, ref)
+
+    np.savez(tmp_path / "port.npz", **pool.snapshot())
+    back = jserving.BpmServer(jcfg, n_slots=3, donate=False)
+    with np.load(tmp_path / "port.npz") as snap:
+        back.restore(snap)
+    for k, v in jpool.snapshot().items():
+        np.testing.assert_allclose(np.asarray(back.snapshot()[k], float),
+                                   np.asarray(v, float), rtol=0, atol=5e-4,
+                                   err_msg=k)
+
+
+def test_legacy_snapshot_and_missing_field(clips, capsys):
+    _, cfg = _cfgs()
+    pool = serving.BpmServer(cfg, n_slots=2)
+    s = pool.attach()
+    for f in clips[0][:12]:
+        pool.tick({s: f})
+    snap = pool.snapshot()
+    fields = list(live.LiveState._fields)
+    legacy = {f"leaf{i}": snap[f"state.{k}"] for i, k in enumerate(fields)}
+    legacy.update(attached=snap["attached"], needs_reset=snap["needs_reset"],
+                  tick_count=snap["tick_count"])
+    p2 = serving.BpmServer(cfg, n_slots=2)
+    p2.restore(legacy)
+    np.testing.assert_array_equal(p2.snapshot()["state.ring_filt"],
+                                  snap["state.ring_filt"])
+    del legacy["leaf8"]
+    with pytest.raises(ValueError, match="leaves"):
+        serving.BpmServer(cfg, n_slots=2).restore(legacy)
+    older = {k: v for k, v in snap.items() if k != "state.ring_bgr"}
+    p3 = serving.BpmServer(cfg, n_slots=2)
+    p3.restore(older)
+    assert "ring_bgr" in capsys.readouterr().err
+    assert not p3.snapshot()["state.ring_bgr"].any()
+
+
+def _serve(pool, shape, **kw):
+    return serving.serve_forever("127.0.0.1", 0, pool, frame_shape=shape,
+                                 **kw)
+
+
+def test_tcp_and_ws_replies_equal_tick_outputs(clips):
+    """A raw-TCP and a WebSocket client stream into one port pool; every
+    reply line equals the single-stream step's output on that frame."""
+    _, cfg = _cfgs(use_fused=True, detect_every=3)
+    pool = serving.BpmServer(cfg, n_slots=4)
+    srv = _serve(pool, clips[0][0].shape[:2])
+    port = srv.server_address[1]
+    results = {}
+
+    def run(name, client_cls, frames):
+        c = client_cls("127.0.0.1", port)
+        for f in frames:
+            c.send(f)
+        results[name] = [c.recv() for _ in frames]
+        c.close()
+
+    threads = [threading.Thread(target=run, args=("tcp", serving.BpmClient,
+                                                  clips[0])),
+               threading.Thread(target=run, args=("ws", serving.WsBpmClient,
+                                                  clips[1]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    srv.shutdown()
+    for name, frames in (("tcp", clips[0]), ("ws", clips[1])):
+        st = live.init_state(cfg)
+        lines = results[name]
+        assert [o["seq"] for o in lines] == list(range(len(frames)))
+        for line, f in zip(lines, frames):
+            st, o = live.step(st, torch.as_tensor(f), cfg)
+            assert line["bpm"] == round(float(o.bpm), 4)
+            assert line["bpm_valid"] == bool(o.bpm_valid)
+            assert line["face_valid"] == bool(o.face_valid)
+            assert line["box"] == [int(x) for x in o.box]
+    assert results["tcp"][-1]["bpm_valid"]
+
+
+def test_tcp_server_survives_malformed_clients(clips):
+    """Garbage hellos and wrong-length frames get an error line and a clean
+    hangup; the pool and other clients are unaffected."""
+    _, cfg = _cfgs()
+    pool = serving.BpmServer(cfg, n_slots=2)
+    srv = _serve(pool, clips[0][0].shape[:2])
+    port = srv.server_address[1]
+    for hello in (b"not json at all\n", b"[1, 2, 3]\n"):
+        bad = socket.create_connection(("127.0.0.1", port), timeout=30)
+        bad.sendall(hello)
+        assert "error" in json.loads(bad.makefile("rb").readline().decode())
+        bad.close()
+    with pytest.raises(ConnectionError, match="transfer"):
+        serving.BpmClient("127.0.0.1", port, transfer="i420")
+    bad2 = serving.BpmClient("127.0.0.1", port)
+    bad2.sock.sendall(struct.pack("<I", 13) + b"x" * 13)
+    line = json.loads(bad2.rfile.readline().decode())
+    assert "error" in line and "13" in line["error"]
+    good = serving.BpmClient("127.0.0.1", port)
+    for f in clips[0][:5]:
+        good.send(f)
+    assert [good.recv()["seq"] for _ in range(5)] == list(range(5))
+    good.close()
+    stats = serving.WsBpmClient("127.0.0.1", port,
+                                hello_extra={"stats": True}).stats
+    assert stats["slots"] == 2 and stats["transfer"] == "bgr"
+    srv.shutdown()
+
+
+def test_auth_token_both_protocols(clips):
+    _, cfg = _cfgs()
+    pool = serving.BpmServer(cfg, n_slots=2)
+    srv = _serve(pool, clips[0][0].shape[:2], auth_token="s3cret")
+    port = srv.server_address[1]
+    with pytest.raises(ConnectionError, match="token"):
+        serving.BpmClient("127.0.0.1", port)
+    with pytest.raises(ConnectionError, match="token"):
+        serving.BpmClient("127.0.0.1", port, token="wrong")
+    with pytest.raises(ConnectionError, match="token"):
+        serving.WsBpmClient("127.0.0.1", port)
+    with pytest.raises(ConnectionError, match="403"):
+        serving.WsBpmClient("127.0.0.1", port, token="s3cret",
+                            origin="http://evil.example")
+    c = serving.BpmClient("127.0.0.1", port, token="s3cret")
+    w = serving.WsBpmClient("127.0.0.1", port, token="s3cret")
+    c.send(clips[0][0])
+    w.send(clips[0][0])
+    assert c.recv()["seq"] == 0 and w.recv()["seq"] == 0
+    assert pool.active_slots == [0, 1]
+    c.close()
+    w.close()
+    srv.shutdown()
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(transfer="i420"), "item 7"),
+    (dict(mesh=object()), "item 14"),
+    (dict(k_faces=2), "item 12"),
+    (dict(cfg=live.LiveConfig(method="pos")), "item 6"),
+])
+def test_pool_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        serving.BpmServer(**kw)
+
+
+def test_pool_init_and_tick_errors():
+    fused = live.LiveConfig(use_fused=True)
+    with pytest.raises(ValueError, match="cheek"):
+        serving.BpmServer(dataclasses.replace(fused, roi_site="forehead"))
+    with pytest.raises(ValueError, match="detector"):
+        serving.BpmServer(fused, detector=lambda f: None)
+    with pytest.raises(ValueError, match="single-face"):
+        serving.BpmServer(fused, k_faces=2)
+    with pytest.raises(ValueError, match="transfer"):
+        serving.BpmServer(transfer="yuv")
+    pool = serving.BpmServer(live.LiveConfig(fps=10.0), n_slots=2)
+    s = pool.attach()
+    with pytest.raises(KeyError, match="not attached"):
+        pool.tick({s + 1: np.zeros((48, 128, 3), np.uint8)})
+    pool.attach()
+    with pytest.raises(RuntimeError, match="busy"):
+        pool.attach()
+    pool.tick({s: np.zeros((48, 128, 3), np.uint8)})
+    with pytest.raises(ValueError, match="geometry"):
+        pool.tick({s: np.zeros((40, 128, 3), np.uint8)})
+    assert pool.tick({}) == {}

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled on first use by ``nvcc`` into one shared
-library with a plain C interface, under ``build/vhr_tpu_torch/`` at the root
-of the checkout, and loaded with ``ctypes``.  The library's file name holds a
-hash of the sources and flags, so an edited source is rebuilt.  Each C entry
-point returns ``cudaGetLastError()`` after its launches; :func:`check`
-raises when it is not 0.
+Every ``csrc/*.cu`` is compiled on first use by its own ``nvcc`` process
+(all started together) and the objects are linked into one shared library
+with a plain C interface, under ``build/vhr_tpu_torch/`` at the root of the
+checkout, loaded with ``ctypes``.  The library's file name holds a hash of
+the sources (headers included) and flags, so an edited source is rebuilt.
+Each C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vhr_tpu_torch"
 # --fmad=false: nvcc contracts no a*b+c on its own; where the kernels want a
 # fused multiply-add (the chroma test) they write __fmaf_rn.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vhr_roi_means_u8": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "vhr_fused_detect_roi": ([_P] + [_I] * 11 + [_F, _I] + [_F] * 9 + [_I]
                              + [_P] * 11),
+    "vhr_fused_detect_roi_slots": ([_P] + [_I] * 8 + [_F, _I] + [_F] * 9
+                                   + [_I] + [_P] * 11),
 }
 
 
@@ -55,7 +57,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvhr_kernels_{h.hexdigest()[:16]}.so"
@@ -64,24 +66,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
-    The compiler's output (with ``-Xptxas -v``: registers, shared memory and
-    spills of each kernel) is kept beside the library as ``.log``.
+    The compilers' output (with ``-Xptxas -v``: registers, shared memory
+    and spills of each kernel) is kept beside the library as ``.log``.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout
-                                       + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 str(Path(tmp) / f"{src.stem}.o"), str(src)]
+                for src in _sources()]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [(c, p.communicate()[0], p.returncode)
+                for c, p in zip(cmds, procs)]
+        lib = str(Path(tmp) / out.name)
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", lib, *(c[-2] for c in cmds)]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        out.with_suffix(".log").write_text("".join(
+            " ".join(c) + "\n" + text for c, text, _ in logs))
+        failed = [(c, text, rc) for c, text, rc in logs if rc != 0]
+        if failed:
+            c, text, rc = failed[0]
+            raise RuntimeError(f"{' '.join(c)} failed ({rc}):\n"
+                               f"{text[-4000:]}")
+        os.replace(lib, out)
     return out
 
 

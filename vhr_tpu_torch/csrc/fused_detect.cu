@@ -39,14 +39,10 @@
 //   3. vhr_roi_means_u8 (K2, roi_means.cu) on those ROIs, with count set to
 //      0 where the ROI is not valid.
 //
-// The chroma test is an explicit __fmaf_rn chain that rounds exactly as the
-// JAX reference does on XLA:CPU under jit (which contracts the float32
-// expressions into fused multiply-adds); any other rounding can flip a
-// threshold decision and move a box edge.  The library is built with
-// --fmad=false so that nvcc contracts nothing else.
+// The chroma test and the chunk pass are in skin_chunk.cuh, shared with K4
+// (fused_slots.cu).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "skin_chunk.cuh"
 
 extern "C" int vhr_roi_means_u8(const uint8_t* frames, const int32_t* rois,
                                 const int32_t* roi_ok, int ok_stride,
@@ -56,29 +52,10 @@ extern "C" int vhr_roi_means_u8(const uint8_t* frames, const int32_t* rois,
 
 namespace {
 
+using vhr::SkinBox;
+
 constexpr int kSkinThreads = 256;
 constexpr int kTrackThreads = 512;
-
-struct SkinBox {
-  float cb_min, cb_max, cr_min, cr_max, y_min;
-};
-
-__device__ __forceinline__ bool is_skin(float b, float g, float r,
-                                        const SkinBox& s) {
-  // y  = 0.299 r + 0.587 g + 0.114 b
-  // cb = 128 - 0.168736 r - 0.331264 g + 0.5 b
-  // cr = 128 + 0.5 r - 0.418688 g - 0.081312 b
-  // rounded as XLA:CPU evaluates them under jit (LLVM contracts them into
-  // this fma chain); models/skin_detector.py::ycbcr_from_bgr is the same.
-  const float y = __fmaf_rn(0.114f, b, __fmaf_rn(0.299f, r,
-                                                 __fmul_rn(0.587f, g)));
-  const float cb = __fmaf_rn(0.5f, b, __fmaf_rn(-0.331264f, g,
-                                                __fmaf_rn(-0.168736f, r, 128.0f)));
-  const float cr = __fmaf_rn(-0.081312f, b, __fmaf_rn(-0.418688f, g,
-                                                      __fmaf_rn(0.5f, r, 128.0f)));
-  return cb >= s.cb_min && cb <= s.cb_max && cr >= s.cr_min &&
-         cr <= s.cr_max && y >= s.y_min;
-}
 
 __device__ __forceinline__ bool detects(int phase, int detect_every,
                                         int seq_len) {
@@ -97,59 +74,9 @@ skin_chunks_kernel(const uint8_t* __restrict__ frames, int phase0, int H,
   const long long t = blockIdx.x / n_chunks;
   const int chunk = blockIdx.x - (int)t * n_chunks;
   if (!detects(phase0 + (int)t, detect_every, seq_len)) return;
-
-  extern __shared__ int rowsum[];  // rb / pool pooled rows
-  __shared__ int s_cells, s_rmin, s_rmax;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int row0 = chunk * rb;            // unclamped origin
-  const int start = min(row0, H - rb);    // clamped origin
-  const int rbp = rb / pool;
-  const int q0 = (row0 - start) / pool;   // pooled rows above q0 were done
-  for (int q = tid; q < rbp; q += blockDim.x) rowsum[q] = 0;
-  if (tid == 0) { s_cells = 0; s_rmin = H; s_rmax = -1; }
-  __syncthreads();
-
-  const long long row_bytes = 3LL * W;
-  const uint8_t* frame = frames + t * H * row_bytes;
-  const float inv = 1.0f / (float)pool;   // exact: pool is a power of two
-  int cells = 0;
-  for (int w0 = 0; w0 < W; w0 += blockDim.x) {
-    const int w = w0 + tid;
-    const bool active = w < W;
-    int cnt = 0;
-    for (int q = q0; q < rbp; ++q) {
-      bool s = false;
-      if (active) {
-        const uint8_t* px = frame + (start + q * pool) * row_bytes + 3LL * w;
-        int sb = 0, sg = 0, sr = 0;
-        for (int k = 0; k < pool; ++k, px += row_bytes) {
-          sb += px[0]; sg += px[1]; sr += px[2];
-        }
-        s = is_skin(__fmul_rn((float)sb, inv), __fmul_rn((float)sg, inv),
-                    __fmul_rn((float)sr, inv), skin);
-      }
-      const unsigned bal = __ballot_sync(0xffffffffu, s);
-      if (lane == 0 && bal) atomicAdd(&rowsum[q], __popc(bal));
-      cnt += s;
-    }
-    if (active) colcnt[(t * n_chunks + chunk) * W + w] = cnt;
-    cells += cnt;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    cells += __shfl_down_sync(0xffffffffu, cells, off);
-  if (lane == 0) atomicAdd(&s_cells, cells);
-  __syncthreads();
-  for (int q = q0 + tid; q < rbp; q += blockDim.x) {
-    if (rowsum[q] >= 2) {
-      atomicMin(&s_rmin, start + q * pool);
-      atomicMax(&s_rmax, start + q * pool + pool - 1);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int32_t* st = stats + (t * n_chunks + chunk) * 3;
-    st[0] = s_cells; st[1] = s_rmin; st[2] = s_rmax;
-  }
+  const long long cell = t * n_chunks + chunk;
+  vhr::skin_chunk(frames + t * H * 3LL * W, chunk, H, W, rb, pool, skin,
+                  colcnt + cell * W, stats + cell * 3);
 }
 
 // Pass 1b: one block per detection frame sums pass 1 over ALL chunks, the

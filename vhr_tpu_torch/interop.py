@@ -1,27 +1,38 @@
 """State carried across from the JAX package, given as numpy / plain data.
 
-The offline green-channel slice has no learned weights: the skin detector's
-thresholds are its parameters, and the tracking carries are its state.
-These functions turn the JAX package's versions of them (as numpy arrays or
-``dataclasses.asdict`` dicts — this module never imports JAX) into the
-port's and back, so a stream started in one package can continue in the
-other.
+The port's slices have no learned weights: the skin detector's thresholds
+and the live configuration are their parameters, and the tracking carries
+and the live state are their state.  These functions turn the JAX package's
+versions of them (as numpy arrays or ``dataclasses.asdict`` dicts — this
+module never imports JAX) into the port's and back, so a stream started in
+one package can continue in the other.  The serving pool's snapshots go
+through :func:`live_state_to_numpy` and :func:`live_state_from_numpy`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from vhr_tpu.config import HRBand, ROIConfig
+
 from .models.skin_detector import SkinDetectorConfig
 from .ops.roi import HoldoverCarry
+from .pipeline.live import LiveConfig, LiveState
 
 __all__ = ["skin_config_from_jax", "fused_carry_from_numpy",
            "fused_carry_to_numpy", "holdover_carry_from_numpy",
-           "holdover_carry_to_numpy"]
+           "holdover_carry_to_numpy", "live_config_from_jax",
+           "live_state_from_numpy", "live_state_to_numpy"]
+
+# The JAX LiveState's leaf types, field by field.
+_LIVE_DTYPES = {"ring_raw": np.float32, "ring_filt": np.float32,
+                "count": np.int32, "zi": np.float32, "last_box": np.int32,
+                "hold_budget": np.int32, "has_last": np.bool_,
+                "frame_idx": np.int32, "ring_bgr": np.float32}
 
 
 def skin_config_from_jax(d: dict) -> SkinDetectorConfig:
@@ -65,3 +76,57 @@ def holdover_carry_to_numpy(carry: HoldoverCarry
     box, budget, has = carry
     return (box.detach().cpu().numpy().astype(np.int32),
             np.int32(int(budget)), np.bool_(bool(has)))
+
+
+def live_config_from_jax(d: dict) -> LiveConfig:
+    """``dataclasses.asdict`` of ``vhr_tpu``'s ``LiveConfig`` -> the port's
+    config (``band`` and ``roi`` may be dicts, as ``asdict`` leaves them).
+    Unknown or missing fields raise."""
+    names = {f.name for f in dataclasses.fields(LiveConfig)}
+    if set(d) != names:
+        raise ValueError(f"live config fields differ: extra "
+                         f"{sorted(set(d) - names)}, missing "
+                         f"{sorted(names - set(d))}")
+    d = dict(d)
+    if isinstance(d["band"], Mapping):
+        d["band"] = HRBand(**d["band"])
+    if isinstance(d["roi"], Mapping):
+        d["roi"] = ROIConfig(**d["roi"])
+    d["adaptive_methods"] = tuple(d["adaptive_methods"])
+    return LiveConfig(**d)
+
+
+def live_state_from_numpy(leaves, device=None) -> LiveState:
+    """A JAX ``LiveState`` as numpy leaves (a mapping by field name, or the
+    NamedTuple itself) -> the port's :class:`LiveState` on ``device``.  The
+    leaves may carry a leading slot axis (a pool's state) or not (one
+    stream); the shapes must agree with each other."""
+    d = leaves._asdict() if hasattr(leaves, "_asdict") else dict(leaves)
+    if set(d) != set(_LIVE_DTYPES):
+        raise ValueError(f"live state fields differ: extra "
+                         f"{sorted(set(d) - set(_LIVE_DTYPES))}, missing "
+                         f"{sorted(set(_LIVE_DTYPES) - set(d))}")
+    a = {k: np.asarray(d[k]).astype(t) for k, t in _LIVE_DTYPES.items()}
+    lead = a["count"].shape
+    N = a["ring_raw"].shape[-1:]
+    want = {"ring_raw": N, "ring_filt": N, "count": (), "zi": None,
+            "last_box": (4,), "hold_budget": (), "has_last": (),
+            "frame_idx": (), "ring_bgr": N + (3,)}
+    for k, tail in want.items():
+        shape = a[k].shape
+        ok = (shape[:len(lead)] == lead
+              and (tail is None and len(shape) == len(lead) + 2
+                   and shape[-1] == 2 or shape[len(lead):] == tail))
+        if not ok:
+            raise ValueError(f"live state field {k} has shape {shape}, "
+                             f"inconsistent with count {lead} and ring "
+                             f"{N}")
+    return LiveState(**{k: torch.as_tensor(v, device=device)
+                        for k, v in a.items()})
+
+
+def live_state_to_numpy(state: LiveState) -> Dict[str, np.ndarray]:
+    """The port's :class:`LiveState` -> numpy leaves by field name, typed as
+    the JAX package's ``LiveState`` leaves."""
+    return {k: getattr(state, k).detach().cpu().numpy().astype(t)
+            for k, t in _LIVE_DTYPES.items()}

@@ -1,16 +1,18 @@
-"""K1: skin detection + holdover tracking + cheek-ROI means in one kernel.
+"""K1 and K4: skin detection + holdover tracking + cheek-ROI means.
 
 Port of ``vhr_tpu/ops/pallas_fused.py`` (``FusedResult``, ``init_carry``,
-``fused_detect_roi_carry``, and ``fused_detect_roi_pallas`` as
-:func:`fused_detect_roi_cuda`); the kernel is ``csrc/fused_detect.cu``.
-Each frame's ROI is the cheek rectangle of the box tracked from *previous*
-frames, so frame 0 of a fresh clip has ``roi_valid=False``.
+``fused_detect_roi_carry``, ``fused_detect_roi_slots``, and
+``fused_detect_roi_pallas`` as :func:`fused_detect_roi_cuda`).  K1
+(``csrc/fused_detect.cu``) tracks one stream through a clip; K4
+(``csrc/fused_slots.cu``) advances S independent serving slots by one frame
+each.  Each frame's ROI is the cheek rectangle of the box tracked from
+*previous* frames, so frame 0 of a fresh clip has ``roi_valid=False``.
 
 A CPU tensor takes the plain version (:func:`fused_detect_roi_plain`: the
-per-chunk skin test vectorised, the tracking in a Python loop over frames);
-a CUDA tensor launches the kernel or raises.  The Pallas wrapper's
-``t_block`` (a Mosaic SMEM limit) has no counterpart: one launch covers the
-whole clip.
+per-chunk skin test vectorised, the tracking in a Python loop over frames;
+:func:`fused_detect_roi_slots_plain` runs it per slot); a CUDA tensor
+launches the kernel or raises.  The Pallas wrapper's ``t_block`` (a Mosaic
+SMEM limit) has no counterpart: one launch covers the whole clip.
 """
 
 from __future__ import annotations
@@ -27,10 +29,14 @@ from ..models.skin_detector import SkinDetectorConfig, ycbcr_from_bgr
 from .reduce import roi_channel_means
 
 __all__ = ["FusedResult", "init_carry", "fused_detect_roi_carry",
-           "fused_detect_roi_cuda", "fused_detect_roi_plain", "LAUNCHES"]
+           "fused_detect_roi_cuda", "fused_detect_roi_plain",
+           "fused_detect_roi_slots", "fused_detect_roi_slots_plain",
+           "LAUNCHES", "SLOT_LAUNCHES"]
 
-# Kernel launches made by fused_detect_roi_carry (CUDA tensors only).
+# Kernel launches made by fused_detect_roi_carry (K1) and
+# fused_detect_roi_slots (K4), CUDA tensors only.
 LAUNCHES = 0
+SLOT_LAUNCHES = 0
 
 # Frames per step of the plain version's vectorised skin test.
 _FRAME_CHUNK = 32
@@ -323,3 +329,113 @@ def fused_detect_roi_cuda(frames: torch.Tensor,
         frames, init_carry(frames.device), det, roi, row_block, detect_every,
         gate_margin, rescan_every, detect_row_pool, seq_len)
     return res
+
+
+def _slot_args(frames: torch.Tensor, carry: torch.Tensor, phase: torch.Tensor,
+               row_block: int, detect_row_pool: int, det: SkinDetectorConfig,
+               detect_every: int, rescan_every: int) -> _Geometry:
+    g = _geometry(frames, row_block, detect_row_pool, det, detect_every,
+                  rescan_every, None, 0, None, None)
+    if g.T == 0:
+        raise ValueError("fused_detect_roi_slots needs at least one slot")
+    if tuple(carry.shape) != (g.T, 6) or tuple(phase.shape) != (g.T,):
+        raise ValueError(f"{g.T} slots need carry ({g.T}, 6) and phase "
+                         f"({g.T},), got {tuple(carry.shape)} and "
+                         f"{tuple(phase.shape)}")
+    return g
+
+
+def fused_detect_roi_slots_plain(frames: torch.Tensor, carry: torch.Tensor,
+                                 phase: torch.Tensor,
+                                 det: SkinDetectorConfig = SkinDetectorConfig(),
+                                 roi: ROIConfig = ROIConfig(),
+                                 row_block: int = 128,
+                                 detect_every: int = 1,
+                                 gate_margin: Optional[float] = None,
+                                 rescan_every: int = 30,
+                                 detect_row_pool: int = 1
+                                 ) -> Tuple[FusedResult, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_detect_roi_slots` (any
+    device): :func:`fused_detect_roi_plain` on each slot's frame, from the
+    slot's carry row at the slot's phase."""
+    g = _slot_args(frames, carry, phase, row_block, detect_row_pool, det,
+                   detect_every, rescan_every)
+    fr = frames.reshape(g.T, g.H, g.W, 3)
+    parts = [fused_detect_roi_plain(
+        fr[s:s + 1], carry[s], det, roi, row_block, detect_every,
+        gate_margin, rescan_every, detect_row_pool, phase=int(ph))
+        for s, ph in enumerate(phase.tolist())]
+    res = FusedResult(*(torch.cat([getattr(p[0], f) for p in parts])
+                        for f in FusedResult._fields))
+    return res, torch.stack([p[1] for p in parts])
+
+
+def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
+                           phase: torch.Tensor,
+                           det: SkinDetectorConfig = SkinDetectorConfig(),
+                           roi: ROIConfig = ROIConfig(),
+                           row_block: int = 128,
+                           detect_every: int = 1,
+                           gate_margin: Optional[float] = None,
+                           rescan_every: int = 30,
+                           detect_row_pool: int = 1
+                           ) -> Tuple[FusedResult, torch.Tensor]:
+    """S independent live streams, one frame each, in one launch (the
+    serving-pool tick).
+
+    Args:
+      frames: ``(S, H, W, 3)`` or flat ``(S, H, W*3)`` uint8 BGR, slot s's
+        current frame; ``H % 8 == 0`` and ``W*3 % 128 == 0``.
+      carry: ``(S, 6)`` int32, each slot's ``[x1, y1, x2, y2, hold_budget,
+        has_last]`` (a zeroed row is a fresh slot).
+      phase: ``(S,)`` int32, each slot's own frame counter for the
+        ``detect_every`` / ``rescan_every`` cadences.  The kernel reads it
+        from device memory, so a caller keeping it on the card never waits.
+      Other knobs as :func:`fused_detect_roi_carry`.
+
+    Returns:
+      ``(FusedResult with a leading (S,) axis, carry_out (S, 6))``; per
+      slot, :func:`fused_detect_roi_carry` at ``t_len=1, phase=phase[s]``.
+    """
+    if frames.device.type == "cpu":
+        return fused_detect_roi_slots_plain(
+            frames, carry, phase, det, roi, row_block, detect_every,
+            gate_margin, rescan_every, detect_row_pool)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    g = _slot_args(frames, carry, phase, row_block, detect_row_pool, det,
+                   detect_every, rescan_every)
+    if frames.dtype != torch.uint8:
+        raise TypeError(f"K4 takes uint8 frames, got {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("K4 needs contiguous frames")
+    S, dev = g.T, frames.device
+    carry = carry.to(device=dev, dtype=torch.int32).contiguous()
+    phase = phase.to(device=dev, dtype=torch.int32).contiguous()
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    colcnt, stats = i32(S, g.n_chunks, g.W), i32(S, g.n_chunks, 3)
+    rois, boxes, flags, carry_out = i32(S, 4), i32(S, 4), i32(S, 2), \
+        i32(S, 6)
+    means = torch.empty((S, 3), dtype=torch.float32, device=dev)
+    count = torch.empty((S,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    global SLOT_LAUNCHES
+    SLOT_LAUNCHES += 1
+    err = lib.vhr_fused_detect_roi_slots(
+        frames.data_ptr(), S, g.H, g.W, g.rb, g.n_chunks, detect_row_pool,
+        detect_every, int(gate_margin is not None),
+        0.0 if gate_margin is None else gate_margin, rescan_every,
+        float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
+        det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
+        roi.landmark_hold_frames, carry.data_ptr(), phase.data_ptr(),
+        carry_out.data_ptr(), colcnt.data_ptr(), stats.data_ptr(),
+        rois.data_ptr(), boxes.data_ptr(), flags.data_ptr(),
+        means.data_ptr(), count.data_ptr(), stream)
+    _build.check(err, "fused_detect_roi_slots")
+    res = FusedResult(means=means, count=count, boxes=boxes,
+                      det_valid=flags[:, 0] > 0, roi_valid=flags[:, 1] > 0)
+    return res, carry_out

@@ -1,0 +1,389 @@
+"""Live streaming rPPG: one carried-state step per frame.
+
+Port of ``vhr_tpu/pipeline/live.py`` (``pack_output``, ``unpack_output``,
+``LiveConfig``, ``LiveState``, ``LiveOutput``, ``init_state``,
+``_masked_welch_psd``, ``_masked_welch_bpm``, ``_method_bpm``, ``step``,
+``make_step``) for the ``"green"`` method.  The per-frame update is the
+reference's live loop as tensor code: detection (or the fused kernel),
+landmark holdover, ROI mean, one causal SOS step, a masked ring write and a
+masked Welch BPM over the ring.
+
+The update is written once, over a leading slot axis, and shared with the
+serving pool (``vhr_tpu_torch.serving``), which advances all its slots in one
+call; :func:`step` is that update with one slot.  The fused path runs kernel
+K4 (``ops.fused_cuda.fused_detect_roi_slots``) with the slot's frame counter
+read on the card, so a step on CUDA tensors never waits for the device.
+The skin-detector path runs the detector on every frame and masks its
+result off the ``detect_every`` cadence for the same reason; the pool, which
+keeps its cadence on the host, skips the detector on off-cadence ticks.
+
+Not ported yet: the ``chrom``/``pos``/``omit``/``adaptive`` methods (they
+need ``dsp/projections.py``), ``transfer="i420"`` (``ops/color.py``),
+``LivePipeline`` and ``step_multi``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vhr_tpu.config import BAND_LIVE, HRBand, ROIConfig
+
+from ..dsp import design, filters
+from ..models import skin_detector
+from ..ops import roi as vroi
+from ..ops.fused_cuda import fused_detect_roi_slots
+from ..ops.roi_means_cuda import roi_channel_means_cuda
+from .offline import DetectorFn
+
+__all__ = ["LiveConfig", "LiveState", "LiveOutput", "init_state", "step",
+           "make_step", "pack_output", "unpack_output"]
+
+_PROJECTION_METHODS = ("chrom", "pos", "omit", "adaptive")
+
+
+def pack_output(o: "LiveOutput") -> torch.Tensor:
+    """LiveOutput -> one ``(..., 10)`` float32 tensor ``[bpm, bpm_valid,
+    green_raw, green_filtered, face_valid, box x1, y1, x2, y2, choice]``,
+    so a step's result crosses to the host as one copy.  The layout is the
+    JAX package's.  Inverse: :func:`unpack_output`."""
+    f32 = lambda x: x.to(torch.float32)
+    return torch.cat([
+        torch.stack([f32(o.bpm), f32(o.bpm_valid), f32(o.green_raw),
+                     f32(o.green_filtered), f32(o.face_valid)], dim=-1),
+        f32(o.box), f32(o.choice)[..., None]], dim=-1)
+
+
+def unpack_output(a: np.ndarray) -> "LiveOutput":
+    """Inverse of :func:`pack_output` (host side, numpy fields)."""
+    return LiveOutput(bpm=a[..., 0], bpm_valid=a[..., 1] > 0.5,
+                      green_raw=a[..., 2], green_filtered=a[..., 3],
+                      box=a[..., 5:9].astype(np.int32),
+                      face_valid=a[..., 4] > 0.5,
+                      choice=a[..., 9].astype(np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveConfig:
+    """The JAX package's ``LiveConfig``, field for field."""
+
+    band: HRBand = BAND_LIVE
+    filter_order: int = 4
+    ring_len: int = 500
+    welch_segment_seconds: float = 9.0
+    roi: ROIConfig = ROIConfig()
+    fps: float = 30.0
+    # Fused detection (kernel K4): one read per frame, the ROI from the box
+    # tracked on previous frames; needs H % 8 == 0 and W*3 % 128 == 0.
+    use_fused: bool = False
+    detect_row_pool: int = 1
+    gate_margin: Optional[float] = None
+    # Run detection on every N-th frame only; the box is tracked between
+    # without draining the holdover budget.
+    detect_every: int = 1
+    roi_site: str = "cheek"
+    method: str = "green"
+    proj_window_seconds: float = 1.6
+    adaptive_methods: Tuple[str, ...] = ("green", "chrom", "pos", "omit")
+    snr_guard_bins: int = 1
+
+
+class LiveState(NamedTuple):
+    """Per-stream state; the serving pool adds a leading ``(S,)`` axis."""
+
+    ring_raw: torch.Tensor     # (N,) float32 raw green samples (circular)
+    ring_filt: torch.Tensor    # (N,) float32 causally filtered samples
+    count: torch.Tensor        # () int32 samples written
+    zi: torch.Tensor           # (n_sections, 2) float32 streaming SOS state
+    last_box: torch.Tensor     # (4,) int32 last face box
+    hold_budget: torch.Tensor  # () int32 remaining reuse frames
+    has_last: torch.Tensor     # () bool
+    frame_idx: torch.Tensor    # () int32 wall-frame counter (cadence phase)
+    ring_bgr: torch.Tensor     # (N, 3) float32 raw BGR ROI means
+
+
+class LiveOutput(NamedTuple):
+    bpm: torch.Tensor
+    bpm_valid: torch.Tensor
+    green_raw: torch.Tensor
+    green_filtered: torch.Tensor
+    box: torch.Tensor
+    face_valid: torch.Tensor
+    choice: torch.Tensor       # index into cfg.adaptive_methods (0 here)
+
+
+def _sos(cfg: LiveConfig) -> np.ndarray:
+    return design.sos_design("butterworth", cfg.fps, cfg.band.low_hz,
+                             cfg.band.high_hz, cfg.filter_order)
+
+
+def _check_method(cfg: LiveConfig) -> None:
+    if cfg.method in _PROJECTION_METHODS:
+        raise NotImplementedError(
+            f"live method {cfg.method!r} needs dsp/projections.py, not yet "
+            f"ported (ROADMAP queue 1, item 6); the port has 'green'")
+    if cfg.method != "green":
+        raise ValueError(f"unknown live method {cfg.method!r}")
+
+
+def _check_fused(cfg: LiveConfig, detector) -> None:
+    if cfg.use_fused and detector is not None:
+        raise ValueError("use_fused runs the in-kernel skin detector; "
+                         "pass detector=None")
+    if cfg.use_fused and cfg.roi_site != "cheek":
+        raise ValueError("the fused kernel bakes cheek ROI geometry; "
+                         "roi_site='forehead' needs use_fused=False")
+
+
+def _zero_state(cfg: LiveConfig, lead: Tuple[int, ...], device=None
+                ) -> LiveState:
+    def z(shape, dtype):
+        return torch.zeros(tuple(lead) + shape, dtype=dtype, device=device)
+
+    N = cfg.ring_len
+    return LiveState(ring_raw=z((N,), torch.float32),
+                     ring_filt=z((N,), torch.float32),
+                     count=z((), torch.int32),
+                     zi=filters.sos_stream_init(_sos(cfg), lead, device),
+                     last_box=z((4,), torch.int32),
+                     hold_budget=z((), torch.int32),
+                     has_last=z((), torch.bool),
+                     frame_idx=z((), torch.int32),
+                     ring_bgr=z((N, 3), torch.float32))
+
+
+def init_state(cfg: LiveConfig = LiveConfig(), device=None) -> LiveState:
+    """Zeroed state (a zeroed state is a fresh stream)."""
+    return _zero_state(cfg, (), device)
+
+
+@functools.lru_cache(maxsize=16)
+def _welch_basis(N: int, fps: float, band: HRBand, segment_seconds: float,
+                 device: torch.device):
+    """The banded DFT of the masked Welch: ``(nperseg, n_segments, cos (L,
+    B), sin (L, B), psd scale (B,), band freqs (B,) numpy)``, or ``None``
+    when no bin falls in the band.  Window, scaling and bin grid are
+    scipy's ``welch`` (periodic Hann, density, one-sided)."""
+    nperseg = int(min(N, fps * segment_seconds))
+    step_len = nperseg - nperseg // 2
+    n_segments = (N - nperseg // 2) // step_len
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(nperseg) / nperseg)
+    freqs = np.fft.rfftfreq(nperseg, d=1.0 / fps)
+    band_idx = np.where((freqs >= band.low_hz) & (freqs <= band.high_hz))[0]
+    if band_idx.size == 0:
+        return None
+    ang = (2.0 * np.pi / nperseg) * np.outer(np.arange(nperseg), band_idx)
+    doubling = np.full(freqs.shape, 2.0)
+    doubling[0] = 1.0
+    if nperseg % 2 == 0:
+        doubling[-1] = 1.0
+    scale = doubling[band_idx] / (fps * float(np.sum(win * win)))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return (nperseg, n_segments, t(np.cos(ang) * win[:, None]),
+            t(np.sin(ang) * win[:, None]), t(scale), freqs[band_idx])
+
+
+def _masked_welch_psd(ordered: torch.Tensor, n_valid: torch.Tensor,
+                      fps: float, band: HRBand, segment_seconds: float):
+    """Masked Welch over chronologically ordered rings ``(..., N)`` whose
+    last ``n_valid (...)`` samples are real: -> ``(mean_psd (..., B),
+    band_freqs (B,) numpy, valid (...))``, or ``None`` for a degenerate
+    band/fps.  Segments anchor at the start of the valid suffix, and only
+    segments inside it count.  The in-band bins come from two float32
+    matmuls (the banded DFT), not a full FFT."""
+    N = ordered.shape[-1]
+    basis = _welch_basis(N, float(fps), band, float(segment_seconds),
+                         ordered.device)
+    if basis is None:
+        return None
+    nperseg, n_seg, cos_m, sin_m, scale, band_freqs = basis
+    dev = ordered.device
+    n_valid = n_valid.to(torch.int64)
+    starts = torch.arange(n_seg, device=dev) * (nperseg - nperseg // 2)
+    idx = ((N - n_valid)[..., None, None] + starts[:, None]
+           + torch.arange(nperseg, device=dev)).clamp(max=N - 1)
+    segs = torch.gather(
+        ordered[..., None, :].expand(ordered.shape[:-1] + (n_seg, N)),
+        -1, idx)                                           # (..., n_seg, L)
+    seg_ok = starts + nperseg <= n_valid[..., None]        # (..., n_seg)
+    # Demean over the valid data, then each segment (detrend="constant").
+    total = ordered.sum(-1) / n_valid.to(torch.float32).clamp(min=1.0)
+    segs = segs - total[..., None, None]
+    segs = segs - segs.mean(-1, keepdim=True)
+    re, im = segs @ cos_m, segs @ sin_m
+    psd = (re * re + im * im) * scale
+    w = seg_ok.to(torch.float32)[..., None]
+    mean_psd = (psd * w).sum(-2) / w.sum(-2).clamp(min=1.0)
+    valid = seg_ok.any(-1) & (n_valid >= nperseg)
+    return mean_psd, band_freqs, valid
+
+
+def _masked_welch_bpm(ordered: torch.Tensor, n_valid: torch.Tensor,
+                      fps: float, band: HRBand, segment_seconds: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Welch PSD peak over ordered rings: ``(bpm (...), valid (...))``.
+    With a full ring this is scipy's ``welch`` peak over the ring."""
+    res = _masked_welch_psd(ordered, n_valid, fps, band, segment_seconds)
+    if res is None:
+        shape = ordered.shape[:-1]
+        return (torch.zeros(shape, dtype=torch.float32, device=ordered.device),
+                torch.zeros(shape, dtype=torch.bool, device=ordered.device))
+    mean_psd, band_freqs, valid = res
+    freqs = torch.as_tensor(band_freqs, dtype=torch.float32,
+                            device=ordered.device)
+    return freqs[torch.argmax(mean_psd, dim=-1)] * 60.0, valid
+
+
+def _method_bpm(cfg: LiveConfig, ring_raw: torch.Tensor,
+                ring_bgr: torch.Tensor, ring_filt: torch.Tensor,
+                count: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-tick BPM of each ring under ``cfg.method`` -> ``(bpm, valid,
+    choice)``: Welch over the causally filtered ring, in time order."""
+    _check_method(cfg)
+    N = cfg.ring_len
+    n_valid = count.clamp(max=N)
+    # Rotate each ring so its oldest sample comes first (jnp.roll(-r)).
+    idx = (torch.arange(N, device=count.device)
+           + (count % N).to(torch.int64)[..., None]) % N
+    ordered = torch.gather(ring_filt, -1, idx)
+    bpm, valid = _masked_welch_bpm(ordered, n_valid, cfg.fps, cfg.band,
+                                   cfg.welch_segment_seconds)
+    return bpm, valid, torch.zeros_like(count)
+
+
+# --- the update, over a leading slot axis ---------------------------------
+# Each helper returns (means (S, 3), face_valid, new_last, new_budget,
+# new_has); face_valid is already masked by `active` (a slot that got no
+# frame advances nothing).
+
+def _fused_track(state: LiveState, frames: torch.Tensor,
+                 active: torch.Tensor, cfg: LiveConfig):
+    """Kernel K4: detection and cheek-ROI means in one read of each slot's
+    frame; the tracking carry is the state's holdover fields and the
+    cadence phase each slot's own frame counter."""
+    carry = torch.cat([state.last_box.to(torch.int32),
+                       state.hold_budget.to(torch.int32)[:, None],
+                       state.has_last.to(torch.int32)[:, None]], dim=1)
+    res, carry_out = fused_detect_roi_slots(
+        frames, carry, state.frame_idx, roi=cfg.roi,
+        detect_every=cfg.detect_every, detect_row_pool=cfg.detect_row_pool,
+        gate_margin=cfg.gate_margin)
+    # An inactive slot's (stale) frame was scanned too: keep its carry.
+    carry_out = torch.where(active[:, None], carry_out, carry)
+    return (res.means, res.roi_valid & active, carry_out[:, 0:4],
+            carry_out[:, 4], carry_out[:, 5] > 0)
+
+
+def _skin_track(state: LiveState, frames: torch.Tensor,
+                attempt: torch.Tensor, active: torch.Tensor,
+                cfg: LiveConfig, detector: Optional[DetectorFn],
+                run_detector: bool):
+    """Detector, holdover with the cadence's 'attempted' semantics (a frame
+    off the cadence tracks without draining the budget), then the ROI means
+    (kernel K2 on the card).  ``run_detector=False`` stands for a detector
+    that found nothing, for ticks where no slot attempts."""
+    S, H, W, _ = frames.shape
+    if run_detector:
+        boxes, v_det = (detector or skin_detector.detect_faces)(frames)
+        boxes = boxes.to(torch.int32)
+    else:
+        boxes = torch.zeros((S, 4), dtype=torch.int32, device=frames.device)
+        v_det = torch.zeros((S,), dtype=torch.bool, device=frames.device)
+    v = v_det & attempt
+    new_last = torch.where(v[:, None], boxes, state.last_box)
+    new_has = v | state.has_last
+    reuse_ok = ~v & attempt & state.has_last & (state.hold_budget > 0)
+    tracked = ~attempt & state.has_last
+    new_budget = torch.where(
+        v, torch.full_like(state.hold_budget, cfg.roi.landmark_hold_frames),
+        torch.where(reuse_ok, state.hold_budget - 1, state.hold_budget))
+    face_valid = (v | reuse_ok | tracked) & active
+    rois = vroi.measurement_roi(new_last, cfg.roi, W, H, cfg.roi_site)
+    rois = torch.where(face_valid[:, None], rois, 0)
+    means, _ = roi_channel_means_cuda(frames, rois)
+    return means, face_valid, new_last, new_budget, new_has
+
+
+def _finish_batched(state: LiveState, cfg: LiveConfig, sos: np.ndarray,
+                    active: torch.Tensor, means: torch.Tensor,
+                    face_valid: torch.Tensor, new_last: torch.Tensor,
+                    new_budget: torch.Tensor, new_has: torch.Tensor
+                    ) -> Tuple[LiveState, LiveOutput]:
+    """Common tail of every update: streaming SOS push, ring writes masked
+    by ``face_valid`` (an invalid frame appends nothing, as the reference's
+    deques), the method's BPM, and the new state."""
+    green = means[:, 1]
+    filt, zi = filters.sos_stream_push(sos, state.zi, green)
+    slots = torch.arange(green.shape[0], device=green.device)
+    ptr = (state.count % cfg.ring_len).to(torch.int64)
+
+    def write(ring, value):
+        old = ring[slots, ptr]
+        keep = face_valid.reshape(face_valid.shape + (1,) * (old.dim() - 1))
+        return ring.index_put((slots, ptr), torch.where(keep, value, old))
+
+    ring_raw = write(state.ring_raw, green)
+    ring_filt = write(state.ring_filt, filt)
+    ring_bgr = write(state.ring_bgr, means)
+    count = state.count + face_valid.to(torch.int32)
+    zi = torch.where(face_valid[:, None, None], zi, state.zi)
+    bpm, bpm_valid, choice = _method_bpm(cfg, ring_raw, ring_bgr, ring_filt,
+                                         count)
+    new_state = LiveState(ring_raw=ring_raw, ring_filt=ring_filt,
+                          count=count, zi=zi, last_box=new_last,
+                          hold_budget=new_budget, has_last=new_has,
+                          frame_idx=state.frame_idx + active.to(torch.int32),
+                          ring_bgr=ring_bgr)
+    out = LiveOutput(bpm=bpm, bpm_valid=bpm_valid, green_raw=green,
+                     green_filtered=filt, box=new_last,
+                     face_valid=face_valid, choice=choice)
+    return new_state, out
+
+
+def step(state: LiveState, frame: torch.Tensor, cfg: LiveConfig,
+         detector: Optional[DetectorFn] = None
+         ) -> Tuple[LiveState, LiveOutput]:
+    """One frame update: ``(state, (H, W, 3) u8 frame) -> (state, out)``.
+
+    ``detector`` replaces the skin detector with any single-face
+    ``frames (1, H, W, 3) -> (boxes (1, 4), valid (1,))`` callable;
+    incompatible with ``use_fused``.  The frame and the state must be on one
+    device.
+    """
+    _check_method(cfg)
+    _check_fused(cfg, detector)
+    frames = torch.as_tensor(frame)[None]
+    one = torch.ones((1,), dtype=torch.bool, device=frames.device)
+    st = LiveState(*(x[None] for x in state))
+    if cfg.use_fused:
+        parts = _fused_track(st, frames, one, cfg)
+    else:
+        attempt = (st.frame_idx % cfg.detect_every == 0
+                   if cfg.detect_every > 1 else one)
+        parts = _skin_track(st, frames, attempt, one, cfg, detector, True)
+    new, out = _finish_batched(st, cfg, _sos(cfg), one, *parts)
+    return (LiveState(*(x[0] for x in new)),
+            LiveOutput(*(x[0] for x in out)))
+
+
+def make_step(cfg: LiveConfig = LiveConfig(),
+              detector: Optional[DetectorFn] = None, transfer: str = "bgr"):
+    """The per-frame step as a ``(state, frame) -> (state, out)`` callable,
+    with its configuration checked once."""
+    if transfer not in ("bgr", "i420"):
+        raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
+    if transfer == "i420":
+        raise NotImplementedError(
+            "transfer='i420' needs ops/color.py, not yet ported (ROADMAP "
+            "queue 1, item 7)")
+    _check_method(cfg)
+    _check_fused(cfg, detector)
+    return lambda state, frame: step(state, frame, cfg, detector)
