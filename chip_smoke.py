@@ -22,7 +22,20 @@ Phases, each of which must pass (any failure exits non-zero):
    every kernel launched, >= 95% of post-acquisition frames valid, and the
    BPM within 0.5 BPM (MAE) of the frame-at-a-time numpy reference run on
    the port's own green trace;
-5. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+5. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
+   decimate, YIQ) and K7 (upsample, add, u8 reconstruction) against their
+   plain versions on the flagship clip's first 64 frames and on a 720p
+   slice of them (K6 also at a width of 1000; K7 on the band the pipeline
+   makes and on a random band of +-0.5, in both layouts): K6 within 1e-6,
+   K7 within 1 u8 on at most 1e-3 of the values.  Then ``magnify`` with
+   ``EVMConfig()`` on a T=600 clip (the app's 20 s chunk) with a 55 BPM
+   pulse: K6 and K7 launched, u8 of the input's shape, the cheek's green
+   pulse amplified more than 5x, the kernel route within 2 u8 of the plain
+   route at T=64.  Then the EVM measure (``_measure_frames``) on the
+   flagship clip: K6 launched, >= 95% of post-acquisition frames valid, BPM
+   MAE at most 4 against the 72 BPM truth, and at T=64 the kernel route's
+   pulse trace within ``rtol=1e-3, atol=1e-6`` of the plain route's;
+6. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
    use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
    at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
    and sway phase; slots attach in a staggered order, one slot skips every
@@ -32,20 +45,21 @@ Phases, each of which must pass (any failure exits non-zero):
    ring is full must report the ``scipy.signal.welch`` peak of its last 500
    filtered samples.  Then the same population through the skin-detector
    tick (``use_fused=False``, ROI means on K2);
-6. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+7. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
    of the truth; then 10 one-frame round trips each;
-7. time each pool tick (device time, and wall time with the host-to-card
+8. time each pool tick (device time, and wall time with the host-to-card
    upload and the fetch) and each kernel against its plain version, with
    CUDA events (median of 3 after a warm-up); both offline forms are timed
-   right after phase 4, the fused one again at the end.
+   right after phase 4, the fused one again at the end, and the EVM path
+   right after phase 5.
 
 The launch counters are set to 0 just before each of the main paths (the
-offline measure, the fused pool, the skin pool, the server) and read just
-after.  The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
-non-zero before printing any result.
+offline measure, ``magnify``, the EVM measure, the fused pool, the skin
+pool, the server) and read just after.  The line before the last is the
+kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
+Without a CUDA card the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -72,6 +86,12 @@ MEANS_RTOL, MEANS_ATOL = 1e-6, 1e-5
 SLOTS, PH, PW, TICKS = 64, 720, 1280, 760
 SERVE_FRAMES, SERVE_RTT = 700, 10
 BPM_TOL = 8.0          # the JAX package's serving tests' bound
+# The EVM path: magnify runs on the app's 20 s chunk with a pulse inside
+# EVMConfig's default band (0.83-1.0 Hz); kernels and routes are compared
+# on the first 64 frames.
+EVM_T, EVM_BPM, EVM_CHECK_T = 600, 55.0, 64
+K6_ATOL, K7_MAX_FRAC = 1e-6, 1e-3
+EVM_MAE_TOL = 4.0      # tests/test_evm.py's bound
 
 
 def log(msg: str) -> None:
@@ -79,9 +99,10 @@ def log(msg: str) -> None:
 
 
 def make_clip(device, t: int, h: int, w: int, seed: int = SEED,
-              chunk: int = 64):
+              chunk: int = 64, bpm: float = TRUTH_BPM):
     """``(t, h, w, 3)`` u8 BGR face clip made on ``device`` from a seed,
-    and its ``(t, 4)`` int32 ground-truth face boxes (inclusive ends)."""
+    with a ``bpm`` green pulse, and its ``(t, 4)`` int32 ground-truth face
+    boxes (inclusive ends)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -96,7 +117,7 @@ def make_clip(device, t: int, h: int, w: int, seed: int = SEED,
         n = min(chunk, t - s)
         ts = torch.arange(s, s + n, device=device, dtype=torch.float32) / FPS
         cx = 0.5 * w + 4.0 * torch.sin(2 * math.pi * 0.1 * ts)   # sway, px
-        pulse = 2.0 * torch.sin(2 * math.pi * TRUTH_BPM / 60.0 * ts)
+        pulse = 2.0 * torch.sin(2 * math.pi * bpm / 60.0 * ts)
         face = (((xx - cx[:, None, None]) / rx) ** 2
                 + ((yy - cy) / ry) ** 2) <= 1.0                    # (n, h, w)
         color = skin.expand(n, 3).clone()
@@ -205,6 +226,188 @@ def wall_ms(fn, reps: int = 3, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
+
+
+def u8_diff(got, want):
+    """(max |got - want|, share of differing values) of two u8 tensors."""
+    import torch
+
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    return int(d.max()), float((d > 0).double().mean())
+
+
+def evm_band(low, cfg):
+    """The amplified band ``magnify`` gives K7, ``(T, 3, hb, wb)``, from
+    K6's output ``low``."""
+    import torch
+    from vhr_tpu_torch.pipeline import evm
+
+    a = cfg.amplification
+    gains = torch.tensor([a, a * cfg.attenuate_chroma,
+                          a * cfg.attenuate_chroma], device=low.device)
+    low = evm.gaussian_pyramid_level(low.permute(0, 2, 3, 1),
+                                     cfg.pyramid_levels - 1)
+    band = evm.temporal_ideal_bandpass(low, FPS, cfg.band) * gains
+    return band.permute(0, 3, 1, 2).contiguous()
+
+
+def check_evm_kernels(dev, frames) -> dict:
+    """K6 and K7 against their plain versions on the clip's first
+    EVM_CHECK_T frames at full size, on a 720p slice and at a width of 1000;
+    K7 on the pipeline's band and on a random band of +-0.5, read and
+    written interleaved (the EVM path's layout) and planar."""
+    import torch
+    from vhr_tpu.config import EVMConfig
+    from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n = EVM_CHECK_T
+    clips = {f"{W}x{H}": frames[:n], "1280x720": frames[:n, :720, :1280],
+             f"1000x{H}": frames[:n, :, :1000]}
+    k6_err, k7_err = 0.0, 0
+    for name, x in clips.items():
+        x = x.contiguous()
+        got = evm_cuda.yiq_pyrdown(x)
+        want = evm_cuda.yiq_pyrdown_plain(x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or err > K6_ATOL:
+            raise AssertionError(f"K6 {name}: max |err| {err}")
+        k6_err = max(k6_err, err)
+        log(f"[check] K6 == plain at {name} x {n}: max |err| {err:.3g}")
+        band = evm_band(got, EVMConfig())
+        rand = torch.rand(band.shape, generator=gen, device=dev) - 0.5
+        for bname, b in (("pipeline", band), ("random +-0.5", rand)):
+            for layout in ("interleaved", "planar"):
+                planar = evm_cuda.to_planar(x)
+                if layout == "planar":
+                    planar = planar.contiguous()
+                g = evm_recon_cuda.evm_reconstruct(planar, b)
+                w_ = evm_recon_cuda.evm_reconstruct_plain(planar, b)
+                torch.cuda.synchronize()
+                mx, frac = u8_diff(g, w_)
+                if mx > 1 or frac > K7_MAX_FRAC:
+                    raise AssertionError(f"K7 {name} {bname} {layout}: max "
+                                         f"|diff| {mx}, share {frac}")
+                k7_err = max(k7_err, mx)
+                log(f"[check] K7 == plain at {name} x {n}, {bname} band "
+                    f"{tuple(b.shape[2:])}, {layout}: max |diff| {mx} u8 "
+                    f"on {frac:.3g} of the values")
+    return dict(k6_err=k6_err, k7_err=float(k7_err))
+
+
+def cheek_pulse(x, bpm: float) -> float:
+    """Spectral amplitude at ``bpm`` of the mean green of a cheek patch of
+    ``(t, H, W, 3)`` u8 frames of ``make_clip``'s face."""
+    import torch
+
+    h, w = x.shape[1], x.shape[2]
+    g = x[:, int(0.50 * h):int(0.58 * h), int(0.38 * w):int(0.45 * w), 1]
+    g = g.double().mean((1, 2))
+    spec = torch.fft.rfft(g - g.mean()).abs()
+    freqs = torch.fft.rfftfreq(g.shape[0], 1.0 / FPS)
+    return float(spec[torch.argmin((freqs - bpm / 60.0).abs())])
+
+
+def run_evm(dev, frames) -> dict:
+    """``magnify`` on a T=EVM_T 1080p clip with a 55 BPM pulse, then the EVM
+    measure on the flagship clip ``frames``; counters from 0 before each,
+    read after.  Checks, then times the path."""
+    import numpy as np
+    import torch
+    from vhr_tpu.config import EVMConfig, HRBand
+    from vhr_tpu_torch.analysis.measurement import evm as measure_evm
+    from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda
+    from vhr_tpu_torch.pipeline import evm
+
+    cfg = EVMConfig()
+    clip, _ = make_clip(dev, EVM_T, H, W, seed=SEED + 6, bpm=EVM_BPM)
+    evm_cuda.LAUNCHES = evm_recon_cuda.LAUNCHES = 0
+    out = evm.magnify(clip, FPS, cfg, use_pallas=True)
+    torch.cuda.synchronize()
+    launches = {"K6": evm_cuda.LAUNCHES, "K7": evm_recon_cuda.LAUNCHES}
+    log(f"[evm] kernel launches in magnify: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of magnify never launched: "
+                             f"{launches}")
+    if out.dtype != torch.uint8 or out.shape != clip.shape:
+        raise AssertionError(f"magnify gave {out.dtype} {tuple(out.shape)}")
+    amp_in, amp_out = cheek_pulse(clip, EVM_BPM), cheek_pulse(out, EVM_BPM)
+    log(f"[evm] magnify {tuple(clip.shape)}: cheek green at {EVM_BPM:g} BPM "
+        f"{amp_in:.1f} in, {amp_out:.1f} out ({amp_out / amp_in:.1f}x)")
+    if not amp_out > 5.0 * amp_in:
+        raise AssertionError(f"magnify: pulse {amp_in} -> {amp_out}")
+    del out
+    part = clip[:EVM_CHECK_T]
+    mx, frac = u8_diff(evm.magnify(part, FPS, cfg, use_pallas=True),
+                       evm.magnify(part, FPS, cfg))
+    log(f"[evm] magnify kernel route vs plain route at T={EVM_CHECK_T}: "
+        f"max |diff| {mx} u8 on {frac:.3g} of the values")
+    if mx > 2:
+        raise AssertionError(f"magnify routes differ by {mx} u8")
+
+    evm_cuda.LAUNCHES = 0
+    res = measure_evm._measure_frames(frames, FPS)
+    torch.cuda.synchronize()
+    launches["K6 measure"] = evm_cuda.LAUNCHES
+    log(f"[evm] kernel launches in the EVM measure: K6={evm_cuda.LAUNCHES}")
+    if evm_cuda.LAUNCHES < 1:
+        raise AssertionError("K6 never launched in the EVM measure")
+    expect = T - int(measure_evm.ACQUISITION_TIME * FPS) + 1
+    bpm = res[:, 1]
+    mae = float(np.abs(bpm - TRUTH_BPM).mean()) if len(bpm) else math.inf
+    log(f"[evm] EVM measure {tuple(frames.shape)}: {len(bpm)}/{expect} "
+        f"post-acquisition frames valid; BPM MAE vs {TRUTH_BPM:g} truth "
+        f"{mae:.4f}")
+    if len(bpm) < 0.95 * expect or not np.isfinite(bpm).all() \
+            or mae > EVM_MAE_TOL:
+        raise AssertionError(f"EVM measure: {len(bpm)} valid of {expect}, "
+                             f"MAE {mae}")
+    band = HRBand(0.65, 3.4)
+    part = frames[:EVM_CHECK_T]
+    got = evm.magnified_pulse(part, FPS, band, measure_evm.LEVELS,
+                              use_pallas=True)
+    want = evm.magnified_pulse(part, FPS, band, measure_evm.LEVELS)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6,
+                               msg="magnified_pulse routes")
+    log(f"[evm] magnified_pulse kernel route vs plain route at "
+        f"T={EVM_CHECK_T}: max |diff| {float((got - want).abs().max()):.3g}")
+
+    # Timing, frames resident on the card.
+    x = frames[:EVM_CHECK_T]
+    band = evm_band(evm_cuda.yiq_pyrdown(x), cfg)
+    planar = evm_cuda.to_planar(x)
+    n = x.shape[0]
+    frame_bytes = H * W * 3
+    times = {
+        "K6": (cuda_ms(lambda: evm_cuda.yiq_pyrdown(x), inner=10),
+               cuda_ms(lambda: evm_cuda.yiq_pyrdown_plain(x)),
+               n * 2 * frame_bytes),
+        "K7": (cuda_ms(lambda: evm_recon_cuda.evm_reconstruct(planar, band),
+                       inner=10),
+               cuda_ms(lambda: evm_recon_cuda.evm_reconstruct_plain(planar,
+                                                                    band)),
+               n * 2 * frame_bytes + band.numel() * 4)}
+    for k, (a, b, nbytes) in times.items():
+        log(f"[time] {k} at {W}x{H} x {n}: kernel {a:.3f} ms "
+            f"({a * 1e3 / n:.3f} us/frame, {nbytes / a / 1e6:.1f} GB/s), "
+            f"plain {b:.3f} ms ({b * 1e3 / n:.3f} us/frame, "
+            f"{nbytes / b / 1e6:.1f} GB/s)")
+    mag = {"kernel T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg,
+                                                      use_pallas=True)),
+           "plain T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg)),
+           f"kernel T={EVM_T}": cuda_ms(lambda: evm.magnify(
+               clip, FPS, cfg, use_pallas=True))}
+    for route, t_ms in mag.items():
+        nf = EVM_T if route.endswith(str(EVM_T)) else EVM_CHECK_T
+        log(f"[time] magnify {route} route: {t_ms:.3f} ms = "
+            f"{nf / (t_ms / 1e3):.1f} frames/s")
+    m_ms = cuda_ms(lambda: measure_evm._measure_frames(frames, FPS))
+    log(f"[time] EVM measure at {W}x{H} x {T}: {m_ms:.3f} ms = "
+        f"{T / (m_ms / 1e3):.1f} frames/s")
+    return dict(launches=launches, k6_ms=times["K6"][0],
+                k6_plain=times["K6"][1], k7_ms=times["K7"][0],
+                k7_plain=times["K7"][1])
 
 
 def check_k4(dev) -> float:
@@ -525,7 +728,16 @@ def main() -> int:
         log(f"[time] {form} form end to end: {t_ms:.3f} ms / {T} frames = "
             f"{T / (t_ms / 1e3):.1f} frames/s, {t_ms * 1e3 / T:.3f} us/frame")
 
-    # 5. The serving pool, fused then skin-detector ticks, counters from 0.
+    # 5. The EVM path: kernels against plain, magnify, the EVM measure.
+    evm_checks = check_evm_kernels(dev, frames)
+    t0 = time.perf_counter()
+    evm_run = run_evm(dev, frames)
+    log(f"[evm] phase in {time.perf_counter() - t0:.1f} s")
+    launches["K6"] = evm_run["launches"]["K6"] \
+        + evm_run["launches"]["K6 measure"]
+    launches["K7"] = evm_run["launches"]["K7"]
+
+    # 6. The serving pool, fused then skin-detector ticks, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True)
@@ -546,14 +758,14 @@ def main() -> int:
     if skin_k2 < 1:
         raise AssertionError("K2 never launched in the skin-detector pool")
 
-    # 6. The front-end, counters from 0.
+    # 7. The front-end, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     served = run_server(dev)
     log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
     if fused_cuda.SLOT_LAUNCHES < 1:
         raise AssertionError("K4 never launched behind the server")
 
-    # 7. Timing (CUDA events; frames resident on the card unless stated).
+    # 8. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)
@@ -610,6 +822,16 @@ def main() -> int:
          "replaces": "vhr_tpu/ops/pallas_fused.py:479",
          "launches": launches["K4"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain},
+        {"name": "yiq_pyrdown (K6)", "route": "cuda",
+         "source": "vhr_tpu_torch/csrc/evm_pyrdown.cu",
+         "replaces": "vhr_tpu/ops/pallas_evm.py:142",
+         "launches": launches["K6"], "max_abs_err": evm_checks["k6_err"],
+         "ms": evm_run["k6_ms"], "plain_ms": evm_run["k6_plain"]},
+        {"name": "evm_reconstruct (K7)", "route": "cuda",
+         "source": "vhr_tpu_torch/csrc/evm_recon.cu",
+         "replaces": "vhr_tpu/ops/pallas_evm_recon.py:147",
+         "launches": launches["K7"], "max_abs_err": evm_checks["k7_err"],
+         "ms": evm_run["k7_ms"], "plain_ms": evm_run["k7_plain"]},
     ]}
     print(card)
     print(json.dumps(record))

@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K4 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1, K2, K4, K6 and K7 against their plain PyTorch versions on a
+CUDA card.
 
 These tests need the card (the CUDA kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it also runs where JAX is not
@@ -8,6 +9,9 @@ installed; there, skip the JAX test configuration with
 
 Boxes, flags, counts and carries must be equal; means within
 ``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32).
+K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
+at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
+dot product, which cuBLAS may order otherwise).
 """
 
 import numpy as np
@@ -16,7 +20,8 @@ import torch
 
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
-from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+from vhr_tpu_torch.ops import (evm_cuda, evm_recon_cuda, fused_cuda,
+                               roi_means_cuda)
 from vhr_tpu_torch.ops.reduce import roi_channel_means
 
 TOL = dict(rtol=1e-6, atol=1e-5)
@@ -30,6 +35,13 @@ def gpu_clip():
                              bpm=80.0, motion_amplitude=1.0, noise_std=4.0,
                              dropout_frames=(20, 21)))
     return torch.as_tensor(v.frames).cuda(), torch.as_tensor(v.face_boxes)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
 
 
 def _same(got, want):
@@ -116,3 +128,44 @@ def test_k4_matches_plain(gpu_clip, kw):
                                                            phase, **kw)
     torch.cuda.synchronize()
     _same(tuple(got) + (got_c,), tuple(want) + (want_c,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 64, 256), (3, 91, 100), (1, 2, 2),
+                                   (2, 35, 131)])
+def test_k6_matches_plain(cuda, shape):
+    T, H, W = shape
+    rng = np.random.default_rng(H)
+    frames = torch.as_tensor(rng.integers(0, 256, (T, H, W, 3), np.uint8),
+                             device=cuda)
+    before = evm_cuda.LAUNCHES
+    got = evm_cuda.yiq_pyrdown(frames)
+    assert evm_cuda.LAUNCHES == before + 1
+    want = evm_cuda.yiq_pyrdown_plain(frames)
+    torch.cuda.synchronize()
+    assert got.shape == (T, 3, H // 2, W // 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+@pytest.mark.parametrize("amp", [0.04, 0.5])
+def test_k7_matches_plain(cuda, layout, amp):
+    rng = np.random.default_rng(int(amp * 100))
+    T, H, W, hb, wb = 3, 75, 130, 9, 17
+    frames = torch.as_tensor(rng.integers(0, 256, (T, H, W, 3), np.uint8),
+                             device=cuda)
+    band = torch.as_tensor(rng.uniform(-amp, amp, (T, 3, hb, wb))
+                           .astype(np.float32), device=cuda)
+    planar = evm_cuda.to_planar(frames)
+    if layout == "planar":
+        planar = planar.contiguous()
+    before = evm_recon_cuda.LAUNCHES
+    got = evm_recon_cuda.evm_reconstruct(planar, band)
+    assert evm_recon_cuda.LAUNCHES == before + 1
+    want = evm_recon_cuda.evm_reconstruct_plain(planar, band)
+    torch.cuda.synchronize()
+    assert got.stride() == planar.stride()
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 1e-3

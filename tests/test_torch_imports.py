@@ -46,6 +46,16 @@ def test_serving_modules_import_without_jax():
     assert out.stdout.split() == ["False"]
 
 
+def test_evm_modules_import_without_jax():
+    """The EVM slice's entry modules load no jax in a fresh interpreter."""
+    code = ("import sys; import vhr_tpu_torch.pipeline.evm, "
+            "vhr_tpu_torch.analysis.measurement.evm; "
+            "print('jax' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False"]
+
+
 def test_skin_config_equals_jax_field_for_field():
     ours = dataclasses.asdict(SkinDetectorConfig())
     ref = dataclasses.asdict(JaxSkinConfig())

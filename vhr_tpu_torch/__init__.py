@@ -7,9 +7,8 @@ function has an obvious counterpart.  It imports ``torch`` and never
 (``vhr_tpu.config``, ``vhr_tpu.utils.synth`` and
 ``vhr_tpu.validation.cpu_reference_green_avg``).
 
-The two Pallas kernels of the offline green-channel measure are hand-written
-CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use
-(``_build.py``).  On CPU tensors every kernel wrapper runs its plain PyTorch
+Each ported Pallas kernel is hand-written CUDA C++ for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` on first use (``_build.py``).  On CPU tensors every kernel wrapper runs its plain PyTorch
 version instead.
 """
 
