@@ -10,8 +10,9 @@ Phases, each of which must pass (any failure exits non-zero):
 2. make a 1080p, T=960 (32 s at 30 fps) face clip on the card from a
    seeded ``torch.Generator``: a skin ellipse on a dark background whose
    green channel pulses at 72 BPM, with a small sway and sensor noise;
-3. hold each kernel against its plain PyTorch version on the card: K2 on
-   the clip's cheek ROIs plus random and degenerate ROIs, K1 over its knobs
+3. hold each kernel against its plain PyTorch version on the card: K2 and
+   K3 on the clip's cheek ROIs plus random, degenerate and negative-``y1``
+   ROIs (K3 also on rows padded to a wider pitch), K1 over its knobs
    (row pooling, detection cadence, gating, multi-stream ``seq_len``) on the
    clip, K4 on 64 slots of 720p frames with random carries (fresh, tracked,
    spent budgets) and random phases over the same knobs; integer outputs
@@ -22,7 +23,18 @@ Phases, each of which must pass (any failure exits non-zero):
    every kernel launched, >= 95% of post-acquisition frames valid, and the
    BPM within 0.5 BPM (MAE) of the frame-at-a-time numpy reference run on
    the port's own green trace;
-5. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
+5. streaming ingest from a file: the flagship clip written to an MJPG
+   ``.avi`` with the port's ``write_video`` and read back whole with
+   ``read_video``; ``extract_signals_streaming`` at ``chunk_frames=256`` (4
+   chunks, the last 192 frames) in the detect-then-reduce form (ROI means
+   on K3) and the fused form (one K1 launch per chunk, carry on the card):
+   each equal to the port's whole-clip pass in the same form on the
+   read-back frames; then ``measure_green_avg_file`` (fused): >= 95% of
+   post-acquisition frames valid, BPM MAE at most 0.5 against the numpy
+   reference on its green trace.  Prints frames/s from the file (decode
+   included), the decode-or-device verdict and the peak device memory of
+   the streaming and whole-clip calls;
+6. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
    decimate, YIQ) and K7 (upsample, add, u8 reconstruction) against their
    plain versions on the flagship clip's first 64 frames and on a 720p
    slice of them (K6 also at a width of 1000; K7 on the band the pipeline
@@ -35,7 +47,7 @@ Phases, each of which must pass (any failure exits non-zero):
    flagship clip: K6 launched, >= 95% of post-acquisition frames valid, BPM
    MAE at most 4 against the 72 BPM truth, and at T=64 the kernel route's
    pulse trace within ``rtol=1e-3, atol=1e-6`` of the plain route's;
-6. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+7. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
    use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
    at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
    and sway phase; slots attach in a staggered order, one slot skips every
@@ -45,30 +57,39 @@ Phases, each of which must pass (any failure exits non-zero):
    ring is full must report the ``scipy.signal.welch`` peak of its last 500
    filtered samples.  Then the same population through the skin-detector
    tick (``use_fused=False``, ROI means on K2);
-7. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+8. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
    of the truth; then 10 one-frame round trips each;
-8. time each pool tick (device time, and wall time with the host-to-card
+9. time each pool tick (device time, and wall time with the host-to-card
    upload and the fetch) and each kernel against its plain version, with
    CUDA events (median of 3 after a warm-up); both offline forms are timed
    right after phase 4, the fused one again at the end, and the EVM path
    right after phase 5.
 
 The launch counters are set to 0 just before each of the main paths (the
-offline measure, ``magnify``, the EVM measure, the fused pool, the skin
-pool, the server) and read just after.  The line before the last is the
-kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
-Without a CUDA card the script exits non-zero before printing any result.
+offline measure, the two streams and the file measure, ``magnify``, the EVM
+measure, the fused pool, the skin pool, the server) and read just after.
+The line before the last is the kernels' JSON record: per kernel its time
+and its plain version's, and ``bound_ms``, the least time the card could
+take for the same work: the larger of the bytes it must move (inputs read
+once, outputs written once; for the ROI kernels the ROI bytes of this run's
+boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
+CUDA cores).  No single PyTorch call computes any of these functions, so
+``library_ms`` is null.  The last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA card the script exits non-zero before printing
+any result; it imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -92,6 +113,11 @@ BPM_TOL = 8.0          # the JAX package's serving tests' bound
 EVM_T, EVM_BPM, EVM_CHECK_T = 600, 55.0, 64
 K6_ATOL, K7_MAX_FRAC = 1e-6, 1e-3
 EVM_MAE_TOL = 4.0      # tests/test_evm.py's bound
+# Streaming ingest: 960 frames in chunks of 256 (the last one 192).
+STREAM_CHUNK = 256
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes/s and float32 operations/s on the CUDA cores.
+HBM_BPS, F32_OPS = 3.35e12, 67e12
 
 
 def log(msg: str) -> None:
@@ -228,6 +254,21 @@ def wall_ms(fn, reps: int = 3, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(least milliseconds for the work on the card, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def roi_bytes(rois, h: int, w: int, c: int = 3) -> int:
+    """The pixel bytes the ROIs cover inside an ``h x w`` frame."""
+    x1, y1 = rois[:, 0].clamp(0, w), rois[:, 1].clamp(0, h)
+    x2, y2 = rois[:, 2].clamp(0, w), rois[:, 3].clamp(0, h)
+    area = (x2 - x1).clamp(min=0).long() * (y2 - y1).clamp(min=0).long()
+    return int(area.sum()) * c
+
+
 def u8_diff(got, want):
     """(max |got - want|, share of differing values) of two u8 tensors."""
     import torch
@@ -257,7 +298,7 @@ def check_evm_kernels(dev, frames) -> dict:
     K7 on the pipeline's band and on a random band of +-0.5, read and
     written interleaved (the EVM path's layout) and planar."""
     import torch
-    from vhr_tpu.config import EVMConfig
+    from vhr_tpu_torch.config import EVMConfig
     from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -315,8 +356,8 @@ def run_evm(dev, frames) -> dict:
     read after.  Checks, then times the path."""
     import numpy as np
     import torch
-    from vhr_tpu.config import EVMConfig, HRBand
     from vhr_tpu_torch.analysis.measurement import evm as measure_evm
+    from vhr_tpu_torch.config import EVMConfig, HRBand
     from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda
     from vhr_tpu_torch.pipeline import evm
 
@@ -407,7 +448,121 @@ def run_evm(dev, frames) -> dict:
         f"{T / (m_ms / 1e3):.1f} frames/s")
     return dict(launches=launches, k6_ms=times["K6"][0],
                 k6_plain=times["K6"][1], k7_ms=times["K7"][0],
-                k7_plain=times["K7"][1])
+                k7_plain=times["K7"][1], k6_bytes=times["K6"][2],
+                k7_bytes=times["K7"][2], n=n)
+
+
+def run_streaming(dev, frames, cfg) -> dict:
+    """Streaming ingest of the flagship clip from an MJPG file: both forms
+    of ``extract_signals_streaming`` against the whole-clip passes on the
+    read-back frames, and ``measure_green_avg_file``; counters from 0
+    before each, read after."""
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+    from vhr_tpu_torch.pipeline import offline
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+    n_chunks = -(-T // STREAM_CHUNK)
+    out = {}
+
+    def peak_of(fn):
+        """(fn's result, device bytes above what was allocated before)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.avi")
+        t0 = time.perf_counter()
+        vio.write_video(frames.cpu().numpy(), path, FPS, fourcc="MJPG")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, fps = vio.read_video(path)
+        t_read = time.perf_counter() - t0
+        log(f"[stream] wrote {T} frames of {W}x{H} MJPG in {t_write:.1f} s "
+            f"({os.path.getsize(path) / 1e6:.1f} MB); read_video took "
+            f"{t_read:.1f} s ({T / t_read:.1f} frames/s)")
+        if back.shape != (T, H, W, 3) or fps != FPS:
+            raise AssertionError(f"read back {back.shape} at {fps} fps")
+
+        for form, kw in (("detect", {}),
+                         ("fused", dict(use_fused=True, detect_row_pool=8))):
+            counter = "BATCHED_LAUNCHES" if form == "detect" else "LAUNCHES"
+            mod = roi_means_cuda if form == "detect" else fused_cuda
+            setattr(mod, counter, 0)
+            ring = {}
+            t0 = time.perf_counter()
+            (bgr, valid, s_fps), s_peak = peak_of(
+                lambda: offline.extract_signals_streaming(
+                    path, cfg, chunk_frames=STREAM_CHUNK, ring_stats=ring,
+                    **kw))
+            wall = time.perf_counter() - t0
+            launches = getattr(mod, counter)
+            name = "K3" if form == "detect" else "K1"
+            log(f"[stream] {form}: {name} launches {launches}; {T} frames "
+                f"in {wall:.2f} s = {T / wall:.1f} frames/s from the file; "
+                f"ring {ring}")
+            if launches < 1 or (form == "fused" and launches != n_chunks):
+                raise AssertionError(f"{form} stream: {name} launched "
+                                     f"{launches} times")
+
+            def whole_pass():
+                x = torch.as_tensor(back).to(dev)
+                if form == "detect":
+                    tr = offline.extract_signals(x, cfg, use_pallas="roi")
+                else:
+                    tr = offline.extract_signals_fused(x, cfg,
+                                                       detect_row_pool=8)
+                return tr.bgr.cpu().numpy(), tr.valid.cpu().numpy()
+
+            (w_bgr, w_valid), w_peak = peak_of(whole_pass)
+            err = float(np.abs(bgr - w_bgr).max())
+            log(f"[stream] {form}: valid {int(valid.sum())}/{T}, == whole "
+                f"clip: valid {np.array_equal(valid, w_valid)}, means max "
+                f"|err| {err:.3g}; peak device memory: stream "
+                f"{s_peak / 1e9:.3f} GB, whole clip {w_peak / 1e9:.3f} GB")
+            if (s_fps != FPS or not np.array_equal(valid, w_valid)
+                    or not np.array_equal(bgr, w_bgr)):
+                raise AssertionError(f"{form} stream differs from the "
+                                     f"whole-clip pass (max |err| {err})")
+            out[form] = dict(launches=launches, fps=T / wall, ring=ring,
+                             peak=s_peak, whole_peak=w_peak, bgr=bgr,
+                             valid=valid)
+
+        fused_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, bpm, valid = offline.measure_green_avg_file(
+            path, cfg, chunk_frames=STREAM_CHUNK, use_fused=True,
+            detect_row_pool=8)
+        wall = time.perf_counter() - t0
+        if fused_cuda.LAUNCHES != n_chunks:
+            raise AssertionError(f"measure_green_avg_file: K1 launched "
+                                 f"{fused_cuda.LAUNCHES} times")
+    f = out["fused"]
+    green = offline._fill_invalid(torch.as_tensor(f["bgr"][:, cfg.channel]),
+                                  torch.as_tensor(f["valid"])).numpy()
+    ref = cpu_reference_green_avg(green, FPS, cfg.window_seconds,
+                                  cfg.acquisition_seconds, cfg.band)
+    expect = T - cfg.acquisition_len(FPS)
+    idx = [i for i in ref if valid[i]]
+    mae = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
+           if idx else math.inf)
+    log(f"[stream] measure_green_avg_file (fused, K1 x "
+        f"{fused_cuda.LAUNCHES}): {T / wall:.1f} frames/s from the file; "
+        f"valid {int(valid.sum())}/{expect} post-acquisition frames; BPM "
+        f"MAE vs numpy reference {mae:.4f} over {len(idx)} frames; vs "
+        f"{TRUTH_BPM:g} truth {float(abs(bpm[valid] - TRUTH_BPM).mean()):.4f}")
+    if valid.sum() < 0.95 * expect or mae > 0.5 \
+            or len(idx) < 0.95 * valid.sum():
+        raise AssertionError(f"measure_green_avg_file: {int(valid.sum())} "
+                             f"valid of {expect}, MAE {mae}")
+    out["measure_fps"] = T / wall
+    return out
 
 
 def check_k4(dev) -> float:
@@ -602,13 +757,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 2
-    from vhr_tpu.config import PipelineConfig
-    from vhr_tpu.validation import cpu_reference_green_avg
     from vhr_tpu_torch import _build
+    from vhr_tpu_torch.config import PipelineConfig
     from vhr_tpu_torch.ops import fused_cuda, roi, roi_means_cuda
     from vhr_tpu_torch.ops import windows as vwin
     from vhr_tpu_torch.ops.reduce import roi_channel_means
     from vhr_tpu_torch.pipeline import offline
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -657,6 +812,28 @@ def main() -> int:
         k2_err = max(k2_err, compare(f"K2 {name} rois", got, want))
     log(f"[check] K2 == plain on clip and random/degenerate ROIs "
         f"(max |err| {k2_err:.3g})")
+    # K3 also on rows padded to a wider pitch (a reader's staging buffer);
+    # its counts must be equal and its means are expected equal.
+    padded = torch.randint(0, 256, (T, H, W * 3 + 64), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    padded[..., :W * 3] = frames.reshape(T, H, W * 3)
+    k3_err = 0.0
+    for name, x, rois_, kw in [("clip", frames, clip_rois, {}),
+                               ("random", frames, rand_rois, {}),
+                               ("padded clip", padded, clip_rois,
+                                dict(width=W)),
+                               ("padded random", padded, rand_rois,
+                                dict(width=W))]:
+        got = roi_means_cuda.roi_channel_means_batched_cuda(x, rois_, **kw)
+        want = roi_channel_means(x, rois_, **kw)
+        torch.cuda.synchronize()
+        err = compare(f"K3 {name} rois", got, want)
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"K3 {name}: counts differ")
+        k3_err = max(k3_err, err)
+        log(f"[check] K3 == plain on {name} ROIs at {W}x{H} x {T}: counts "
+            f"equal, means max |err| {err:.3g}")
+    del padded
 
     k1_err = 0.0
     configs = [dict(detect_row_pool=p, detect_every=d, gate_margin=g)
@@ -728,7 +905,13 @@ def main() -> int:
         log(f"[time] {form} form end to end: {t_ms:.3f} ms / {T} frames = "
             f"{T / (t_ms / 1e3):.1f} frames/s, {t_ms * 1e3 / T:.3f} us/frame")
 
-    # 5. The EVM path: kernels against plain, magnify, the EVM measure.
+    # 5. Streaming ingest from a file, counters from 0 before each form.
+    t0 = time.perf_counter()
+    stream = run_streaming(dev, frames, cfg)
+    log(f"[stream] phase in {time.perf_counter() - t0:.1f} s")
+    launches["K3"] = stream["detect"]["launches"]
+
+    # 6. The EVM path: kernels against plain, magnify, the EVM measure.
     evm_checks = check_evm_kernels(dev, frames)
     t0 = time.perf_counter()
     evm_run = run_evm(dev, frames)
@@ -737,7 +920,7 @@ def main() -> int:
         + evm_run["launches"]["K6 measure"]
     launches["K7"] = evm_run["launches"]["K7"]
 
-    # 6. The serving pool, fused then skin-detector ticks, counters from 0.
+    # 7. The serving pool, fused then skin-detector ticks, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True)
@@ -758,14 +941,14 @@ def main() -> int:
     if skin_k2 < 1:
         raise AssertionError("K2 never launched in the skin-detector pool")
 
-    # 7. The front-end, counters from 0.
+    # 8. The front-end, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     served = run_server(dev)
     log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
     if fused_cuda.SLOT_LAUNCHES < 1:
         raise AssertionError("K4 never launched behind the server")
 
-    # 8. Timing (CUDA events; frames resident on the card unless stated).
+    # 9. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)
@@ -791,6 +974,11 @@ def main() -> int:
     k2_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_cuda(
         frames, clip_rois), inner=10)
     k2_plain = cuda_ms(lambda: roi_channel_means(frames, clip_rois))
+    k3_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_batched_cuda(
+        frames, clip_rois), inner=10)
+    log(f"[time] K3 on the clip's cheek ROIs at {W}x{H} x {T}: kernel "
+        f"{k3_ms:.3f} ms, K2 {k2_ms:.3f} ms, plain {k2_plain:.3f} ms (one "
+        f"plain version for both)")
     slot_frames = fused_pool["frames"]
     state = fused_pool["pool"]._state
     carry = torch.cat([state.last_box, state.hold_budget[:, None],
@@ -800,39 +988,65 @@ def main() -> int:
     k4_plain = cuda_ms(lambda: fused_cuda.fused_detect_roi_slots_plain(
         slot_frames, carry, state.frame_idx))
     for k, a, b, n in [("K1", k1_ms, k1_plain, T), ("K2", k2_ms, k2_plain, T),
+                       ("K3", k3_ms, k2_plain, T),
                        ("K4", k4_ms, k4_plain, SLOTS)]:
         log(f"[time] {k}: kernel {a:.3f} ms ({a * 1e3 / n:.3f} us/frame), "
             f"plain {b:.3f} ms ({b * 1e3 / n:.3f} us/frame)")
 
+    # Least times for the timed work: bytes over 3.35 TB/s, operations (a
+    # count per element, stated beside each) over 67 TFLOP/s.
+    small = T * (12 + 4 + 16 + 2)          # K1's means, count, boxes, flags
+    cheek = roi_bytes(clip_rois, H, W)
+    sp, sh, sw = slot_frames.shape[:3]
+    n6 = evm_run["n"]
+    bounds = {
+        # K1: every pixel read; 3 pooling adds per pixel and ~20 operations
+        # per pooled cell's chroma test.
+        "K1": bound(T * H * W * 3 + small + 48,
+                    3 * T * H * W + 20 * T * (H // 8) * W),
+        # K2, K3: the cheek ROIs' bytes, one add per byte.
+        "K2": bound(cheek + T * (16 + 16), cheek),
+        "K3": bound(cheek + T * (16 + 16), cheek),
+        # K4: every slot's frame read; ~20 operations per pixel's test.
+        "K4": bound(sp * sh * sw * 3 + sp * (24 + 4 + 34 + 24),
+                    20 * sp * sh * sw),
+        # K6: u8 frames in, f32 YIQ half-size planes out; ~170 operations
+        # per output pixel (a 5x5 blur of 3 channels, the YIQ matrix).
+        "K6": bound(evm_run["k6_bytes"], 170 * n6 * (H // 2) * (W // 2)),
+        # K7: u8 frames and the f32 band in, u8 out; ~70 operations per
+        # pixel (YIQ there and back, the bilinear taps, rounding).
+        "K7": bound(evm_run["k7_bytes"], 70 * n6 * H * W)}
+    for k, (b_ms, by) in bounds.items():
+        log(f"[bound] {k}: {b_ms:.4f} ms ({by})")
+
     if "jax" in sys.modules:
         raise AssertionError("the port's smoke run imported jax")
+    ref_mods = sorted(m for m in sys.modules
+                      if m == "vhr_tpu" or m.startswith("vhr_tpu."))
+    if ref_mods:
+        raise AssertionError(f"the port's smoke run imported the JAX "
+                             f"package: {ref_mods}")
+    entries = [
+        ("fused_detect_roi (K1)", "K1", "fused_detect.cu",
+         "pallas_fused.py:385", k1_err, k1_ms, k1_plain),
+        ("roi_channel_means (K2)", "K2", "roi_means.cu", "pallas_roi.py:167",
+         k2_err, k2_ms, k2_plain),
+        ("roi_channel_means_batched (K3)", "K3", "roi_means_batched.cu",
+         "pallas_roi.py:324", k3_err, k3_ms, k2_plain),
+        ("fused_detect_roi_slots (K4)", "K4", "fused_slots.cu",
+         "pallas_fused.py:479", k4_err, k4_ms, k4_plain),
+        ("yiq_pyrdown (K6)", "K6", "evm_pyrdown.cu", "pallas_evm.py:142",
+         evm_checks["k6_err"], evm_run["k6_ms"], evm_run["k6_plain"]),
+        ("evm_reconstruct (K7)", "K7", "evm_recon.cu",
+         "pallas_evm_recon.py:147", evm_checks["k7_err"], evm_run["k7_ms"],
+         evm_run["k7_plain"])]
     record = {"kernels": [
-        {"name": "fused_detect_roi (K1)", "route": "cuda",
-         "source": "vhr_tpu_torch/csrc/fused_detect.cu",
-         "replaces": "vhr_tpu/ops/pallas_fused.py:385",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "roi_channel_means (K2)", "route": "cuda",
-         "source": "vhr_tpu_torch/csrc/roi_means.cu",
-         "replaces": "vhr_tpu/ops/pallas_roi.py:167",
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "fused_detect_roi_slots (K4)", "route": "cuda",
-         "source": "vhr_tpu_torch/csrc/fused_slots.cu",
-         "replaces": "vhr_tpu/ops/pallas_fused.py:479",
-         "launches": launches["K4"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain},
-        {"name": "yiq_pyrdown (K6)", "route": "cuda",
-         "source": "vhr_tpu_torch/csrc/evm_pyrdown.cu",
-         "replaces": "vhr_tpu/ops/pallas_evm.py:142",
-         "launches": launches["K6"], "max_abs_err": evm_checks["k6_err"],
-         "ms": evm_run["k6_ms"], "plain_ms": evm_run["k6_plain"]},
-        {"name": "evm_reconstruct (K7)", "route": "cuda",
-         "source": "vhr_tpu_torch/csrc/evm_recon.cu",
-         "replaces": "vhr_tpu/ops/pallas_evm_recon.py:147",
-         "launches": launches["K7"], "max_abs_err": evm_checks["k7_err"],
-         "ms": evm_run["k7_ms"], "plain_ms": evm_run["k7_plain"]},
-    ]}
+        {"name": name, "route": "cuda", "source": f"vhr_tpu_torch/csrc/{src}",
+         "replaces": f"vhr_tpu/ops/{site}", "launches": launches[k],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
+        for name, k, src, site, err, ms, plain in entries]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -19,15 +19,17 @@ import jax
 import jax.numpy as jnp
 
 import vhr_tpu.io.video
+from vhr_tpu import config as jconfig
 from vhr_tpu.analysis.measurement import evm as jax_measure
-from vhr_tpu.config import BAND_ANALYSIS, EVMConfig, HRBand
 from vhr_tpu.dsp import spectral as jspectral
 from vhr_tpu.ops import color as jcolor
 from vhr_tpu.ops import pallas_evm, pallas_evm_recon
 from vhr_tpu.pipeline import evm as jevm
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
+import vhr_tpu_torch.io.video
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
+from vhr_tpu_torch.config import BAND_ANALYSIS, EVMConfig, HRBand
 from vhr_tpu_torch.dsp import spectral
 from vhr_tpu_torch.ops import color, evm_cuda, evm_recon_cuda
 from vhr_tpu_torch.pipeline import evm
@@ -85,7 +87,7 @@ def test_pyramid_and_bandpass_match_jax(case, monkeypatch):
         x = (x[:, None, None, None]
              + rng.normal(size=(300, 4, 5, 3))).astype(np.float32)
         want = jevm.temporal_ideal_bandpass(jnp.asarray(x), 30.0,
-                                            HRBand(0.8, 1.2))
+                                            jconfig.HRBand(0.8, 1.2))
         got = evm.temporal_ideal_bandpass(_t(x), 30.0, HRBand(0.8, 1.2))
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
@@ -174,9 +176,10 @@ def test_magnify_matches_jax(route):
     W = 100 if route == "kernel_w100" else 128   # W % 128 != 0: plain route
     frames = _pulse_frames(30, 50, W)
     cfg = EVMConfig(pyramid_levels=2, amplification=20.0)
+    jcfg = jconfig.EVMConfig(pyramid_levels=2, amplification=20.0)
     kw = {} if route == "plain" else dict(use_pallas=True)
     jkw = {} if route == "plain" else dict(use_pallas=True, interpret=True)
-    want = np.asarray(jevm.magnify(jnp.asarray(frames), 30.0, cfg, **jkw))
+    want = np.asarray(jevm.magnify(jnp.asarray(frames), 30.0, jcfg, **jkw))
     got = evm.magnify(_t(frames), 30.0, cfg, **kw)
     assert got.dtype == torch.uint8 and got.is_contiguous()
     _u8_close(got.numpy(), want, 0.01)
@@ -186,15 +189,15 @@ def test_magnify_matches_jax(route):
 def test_magnified_pulse_matches_jax(route):
     clip = synthesize(SynthSpec(duration_s=8.0, bpm=90.0, height=64,
                                 width=128, pulse_amplitude=1.5))
-    band = HRBand(0.7, 3.0)
+    band, jband = HRBand(0.7, 3.0), jconfig.HRBand(0.7, 3.0)
     x = jnp.asarray(clip.frames)
     if route == "plain":
-        want = jevm.magnified_pulse(x, clip.fps, band, levels=2)
+        want = jevm.magnified_pulse(x, clip.fps, jband, levels=2)
     else:   # JAX's kernel route, with the Pallas kernel in interpret mode
         low = jnp.moveaxis(pallas_evm.yiq_pyrdown_pallas(x, interpret=True),
                            1, -1)
         low = jevm.gaussian_pyramid_level(low, 1)
-        want = jnp.mean(jevm.temporal_ideal_bandpass(low, clip.fps, band),
+        want = jnp.mean(jevm.temporal_ideal_bandpass(low, clip.fps, jband),
                         axis=(1, 2))
     got = evm.magnified_pulse(_t(clip.frames), clip.fps, band, levels=2,
                               use_pallas=route == "kernel")
@@ -212,7 +215,7 @@ def test_multichannel_estimators_match_jax():
            * rng.uniform(0.2, 2.0, (6, 1, 3))
            + 0.3 * rng.normal(size=(6, T, 3))).astype(np.float32)
     want = jspectral.estimate_bpm_multichannel(jnp.asarray(sig), fs,
-                                               BAND_ANALYSIS)
+                                               jconfig.BAND_ANALYSIS)
     got = spectral.estimate_bpm_multichannel(_t(sig), fs, BAND_ANALYSIS)
     np.testing.assert_array_equal(got.bpm.numpy(), np.asarray(want.bpm))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
@@ -223,7 +226,8 @@ def test_multichannel_estimators_match_jax():
     masked = np.where(np.arange(T)[None, :, None] < lengths[:, None, None],
                       prefix[None], 0.0).astype(np.float32)
     want = jax.vmap(lambda s, nv: jspectral.estimate_bpm_multichannel_exact(
-        s, nv, fs, BAND_ANALYSIS))(jnp.asarray(masked), jnp.asarray(lengths))
+        s, nv, fs, jconfig.BAND_ANALYSIS))(jnp.asarray(masked),
+                                           jnp.asarray(lengths))
     got = spectral.estimate_bpm_multichannel_exact(_t(masked), _t(lengths),
                                                    fs, BAND_ANALYSIS)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
@@ -233,13 +237,14 @@ def test_multichannel_estimators_match_jax():
 
 def test_measure_matches_jax(monkeypatch):
     """Both packages' EVM measurement plugins on one synthetic clip, read
-    through the same (patched) video reader."""
+    through the same (patched) video reader: each package's own."""
     clip = synthesize(SynthSpec(height=32, width=64, fps=10.0,
                                 duration_s=35.0, bpm=72.0, noise_std=1.0))
-    monkeypatch.setattr(vhr_tpu.io.video, "read_video",
-                        lambda path: (clip.frames, clip.fps))
+    for video in (vhr_tpu.io.video, vhr_tpu_torch.io.video):
+        monkeypatch.setattr(video, "read_video",
+                            lambda path: (clip.frames, clip.fps))
     want = jax_measure.measure("clip.mp4")
-    got = measure_evm.measure("clip.mp4")
+    got = measure_evm.measure("clip.mp4", device="cpu")
     assert got.shape == want.shape and got.shape[0] > 200
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-3)

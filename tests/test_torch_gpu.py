@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K4, K6 and K7 against their plain PyTorch versions on a
-CUDA card.
+"""Kernels K1, K2, K3, K4, K6 and K7 against their plain PyTorch versions on
+a CUDA card.
 
 These tests need the card (the CUDA kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it also runs where JAX is not
@@ -8,7 +8,8 @@ installed; there, skip the JAX test configuration with
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Boxes, flags, counts and carries must be equal; means within
-``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32).
+``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32;
+K3's means are held equal).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
 dot product, which cuBLAS may order otherwise).
@@ -169,3 +170,80 @@ def test_k7_matches_plain(cuda, layout, amp):
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     assert int(diff.max()) <= 1
     assert float((diff > 0).float().mean()) <= 1e-3
+
+
+def _k3_rois(rng, T, H, W):
+    """Random ROIs, some beyond the frame on every side, with an invalid,
+    a degenerate, an inverted, a whole-frame and a negative-``y1`` box."""
+    x1 = rng.integers(-20, W, T)
+    y1 = rng.integers(-20, H, T)
+    rois = np.stack([x1, y1, x1 + rng.integers(-5, W, T),
+                     y1 + rng.integers(-5, H, T)], -1).astype(np.int32)
+    rois[0] = 0
+    rois[1] = [7, 11, 13, 11]
+    rois[2] = [20, 5, 9, 30]
+    rois[3] = [-9, -9, W + 9, H + 9]
+    rois[4] = [3, -5, W // 2, H - 3]
+    return rois
+
+
+def _k3_check(frames, rois, **kw):
+    before = roi_means_cuda.BATCHED_LAUNCHES
+    got = roi_means_cuda.roi_channel_means_batched_cuda(frames, rois, **kw)
+    assert roi_means_cuda.BATCHED_LAUNCHES == before + 1
+    want = roi_channel_means(frames, rois, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 104, 128, 3), (13, 75, 130, 3),
+                                   (9, 40, 37, 1), (5, 33, 21, 4),
+                                   (6, 64, 1920, 3)])
+def test_k3_matches_plain(cuda, shape):
+    """Shapes whose rows are 16-byte aligned and not, every channel count,
+    and ``T`` not a multiple of the 8-frame batch."""
+    T, H, W, C = shape
+    rng = np.random.default_rng(T * W)
+    frames = torch.as_tensor(rng.integers(0, 256, shape, np.uint8),
+                             device=cuda)
+    rois = torch.as_tensor(_k3_rois(rng, T, H, W), device=cuda)
+    _k3_check(frames, rois)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [64, 5])
+def test_k3_padded_pitch_matches_plain(cuda, pad):
+    """Flat rows padded by ``pad`` bytes (a reader's staging buffer), and a
+    strided view of every other frame: no copy, the same sums."""
+    T, H, W = 21, 48, 64
+    rng = np.random.default_rng(pad)
+    padded = torch.as_tensor(rng.integers(0, 256, (T, H, W * 3 + pad),
+                                          np.uint8), device=cuda)
+    rois = torch.as_tensor(_k3_rois(rng, T, H, W), device=cuda)
+    _k3_check(padded, rois, width=W)
+    frames = padded[..., :W * 3].reshape(T, H, W, 3)
+    got = roi_means_cuda.roi_channel_means_batched_cuda(padded, rois,
+                                                        width=W)
+    want = roi_means_cuda.roi_channel_means_batched_cuda(
+        frames.contiguous(), rois)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _k3_check(padded[::2], rois[::2].contiguous(), width=W)
+
+
+@pytest.mark.gpu
+def test_k3_matches_k2_on_the_clip(gpu_clip):
+    """K3 and K2 on the synthetic clip's cheek-like ROIs, 4-D and flat."""
+    frames, boxes = gpu_clip
+    T, H, W, _ = frames.shape
+    rois = boxes.cuda()
+    a = roi_means_cuda.roi_channel_means_batched_cuda(frames, rois)
+    b = roi_means_cuda.roi_channel_means_cuda(frames, rois)
+    c = roi_means_cuda.roi_channel_means_batched_cuda(
+        frames.reshape(T, H, W * 3), rois)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+        torch.testing.assert_close(x, z, rtol=0, atol=0)

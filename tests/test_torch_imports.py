@@ -1,16 +1,28 @@
-"""The PyTorch port imports without JAX and shares the JAX package's
-configuration surface."""
+"""The PyTorch port imports neither JAX nor the JAX package, and its own
+copies of the JAX package's jax-free modules (configuration, filter design)
+equal the originals."""
 
 import dataclasses
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
+import torch
+
+from vhr_tpu import config as jconfig
+from vhr_tpu.dsp import design as jdesign
 from vhr_tpu.models.skin_detector import SkinDetectorConfig as JaxSkinConfig
+from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
 import vhr_tpu_torch
-from vhr_tpu_torch import interop
+from vhr_tpu_torch import config, interop, serving
+from vhr_tpu_torch.analysis.measurement import evm as measure_evm
+from vhr_tpu_torch.dsp import design
 from vhr_tpu_torch.models.skin_detector import SkinDetectorConfig
+from vhr_tpu_torch.pipeline import offline
+from vhr_tpu_torch.validation import cpu_reference_green_avg
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -21,23 +33,27 @@ names = [m.name for m in pkgutil.walk_packages(vhr_tpu_torch.__path__,
                                                'vhr_tpu_torch.')]
 for n in names:
     importlib.import_module(n)
-print(len(names), 'jax' in sys.modules, 'torch' in sys.modules)
+import chip_smoke
+ref = [m for m in sys.modules if m == 'vhr_tpu' or m.startswith('vhr_tpu.')]
+print(len(names), 'jax' in sys.modules, 'torch' in sys.modules, len(ref))
 """
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports in a fresh interpreter without
-    loading jax (the GPU machine has none)."""
+    """Every module of the port, and ``chip_smoke.py``, imports in a fresh
+    interpreter without loading jax (the GPU machine has none) or any
+    module of ``vhr_tpu``."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, check=True)
-    n, has_jax, has_torch = out.stdout.split()
-    assert int(n) >= 18
+    n, has_jax, has_torch, n_ref = out.stdout.split()
+    assert int(n) >= 22
     assert has_jax == "False" and has_torch == "True"
+    assert n_ref == "0"
 
 
 def test_serving_modules_import_without_jax():
     """The serving slice's entry modules load no jax in a fresh
-    interpreter (the shared filter design is loaded by file path)."""
+    interpreter (the filter design is the port's own copy)."""
     code = ("import sys; import vhr_tpu_torch.serving, "
             "vhr_tpu_torch.pipeline.live, vhr_tpu_torch.dsp.design; "
             "print('jax' in sys.modules)")
@@ -68,7 +84,98 @@ def test_skin_config_equals_jax_field_for_field():
 
 
 def test_config_types_are_shared():
-    from vhr_tpu import config
+    """The port's ``config`` is the JAX package's, field for field: every
+    dataclass with the same field names in the same order and the same
+    defaults, the same methods, and the same three bands."""
+    classes = [n for n, v in vars(jconfig).items()
+               if dataclasses.is_dataclass(v) and isinstance(v, type)]
+    assert sorted(classes) == sorted(
+        n for n, v in vars(config).items()
+        if dataclasses.is_dataclass(v) and isinstance(v, type))
+    assert len(classes) == 7
+    for name in classes:
+        ours, ref = getattr(config, name), getattr(jconfig, name)
+        assert ours is not ref
+        assert [(f.name, f.type) for f in dataclasses.fields(ours)] == \
+            [(f.name, f.type) for f in dataclasses.fields(ref)], name
+        if name != "HRBand":        # the one class without defaults
+            assert dataclasses.asdict(ours()) == dataclasses.asdict(ref()), \
+                name
+    for band in ("BAND_VIDEO", "BAND_LIVE", "BAND_ANALYSIS"):
+        assert dataclasses.asdict(getattr(config, band)) == \
+            dataclasses.asdict(getattr(jconfig, band))
+        assert getattr(vhr_tpu_torch, band) == getattr(config, band)
+        assert getattr(config, band).high_bpm == \
+            getattr(jconfig, band).high_bpm
+    assert dataclasses.asdict(config.DEFAULT_CONFIG) == \
+        dataclasses.asdict(jconfig.DEFAULT_CONFIG)
+    ours = config.PipelineConfig(window_seconds=12.0,
+                                 acquisition_seconds=3.5)
+    ref = jconfig.PipelineConfig(window_seconds=12.0,
+                                 acquisition_seconds=3.5)
+    for fps in (10.0, 29.97, 30.0):
+        assert ours.window_len(fps) == ref.window_len(fps)
+        assert ours.acquisition_len(fps) == ref.acquisition_len(fps)
     assert vhr_tpu_torch.PipelineConfig is config.PipelineConfig
     assert vhr_tpu_torch.ROIConfig is config.ROIConfig
-    assert vhr_tpu_torch.BAND_ANALYSIS == config.BAND_ANALYSIS
+
+
+@pytest.mark.parametrize("fps", [10.0, 30.0])
+@pytest.mark.parametrize("kind", ["butterworth", "cheby2", "fir"])
+def test_design_equals_jax(kind, fps):
+    """The port's copy of the filter design gives the JAX package's
+    coefficients exactly, and the same initial conditions and padding."""
+    band = config.BAND_ANALYSIS
+    if kind == "fir":
+        args = (41, band.low_hz / (0.5 * fps), band.high_hz / (0.5 * fps))
+        got, want = design.firwin_bandpass(*args), \
+            jdesign.firwin_bandpass(*args)
+        np.testing.assert_array_equal(got, want)
+        assert design.filtfilt_padlen(got, [1.0]) == \
+            jdesign.filtfilt_padlen(want, [1.0])
+        return
+    args = (kind, fps, band.low_hz, band.high_hz, 2, 40.0)
+    got, want = design.sos_design(*args), jdesign.sos_design(*args)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(design.sosfilt_zi(got),
+                                  jdesign.sosfilt_zi(want))
+    assert design.sosfiltfilt_padlen(got) == jdesign.sosfiltfilt_padlen(want)
+
+
+def test_cpu_reference_equals_jax_package():
+    """The port's copy of the frame-at-a-time numpy reference gives the JAX
+    package's ``{frame: bpm}``, including the N < 8 rule and a band with no
+    bin."""
+    rng = np.random.default_rng(3)
+    t = np.arange(400) / 20.0
+    green = (np.sin(2 * np.pi * 1.3 * t) + 0.5 * rng.normal(size=t.shape)
+             ).astype(np.float32)
+    for args in [(20.0, 10.0, 3.0), (20.0, 0.3, 0.2)]:
+        assert cpu_reference_green_avg(green, *args) == \
+            jax_reference(green, *args)
+    narrow = config.HRBand(1.01, 1.02)
+    assert cpu_reference_green_avg(green, 20.0, band=narrow) == \
+        jax_reference(green, 20.0, band=jconfig.HRBand(1.01, 1.02))
+
+
+@pytest.mark.parametrize("entry", ["BpmServer", "evm.measure",
+                                   "extract_signals_streaming",
+                                   "measure_green_avg_file"])
+def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
+    """Without a CUDA card an entry point refuses to start unless the
+    caller passes ``device="cpu"``; it never falls back on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "missing.avi")
+    call = {"BpmServer": lambda **kw: serving.BpmServer(n_slots=2, **kw),
+            "evm.measure": lambda **kw: measure_evm.measure(path, **kw),
+            "extract_signals_streaming":
+                lambda **kw: offline.extract_signals_streaming(path, **kw),
+            "measure_green_avg_file":
+                lambda **kw: offline.measure_green_avg_file(path, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    if entry == "BpmServer":
+        assert call(device="cpu").device == torch.device("cpu")
+    else:       # with device="cpu" it starts, and finds no file
+        with pytest.raises(FileNotFoundError):
+            call(device="cpu")

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from vhr_tpu.config import BAND_ANALYSIS, PipelineConfig
+from vhr_tpu import config as jconfig
 from vhr_tpu.dsp import filters as jfilters
 from vhr_tpu.dsp import spectral as jspectral
 from vhr_tpu.ops import windows as jwin
@@ -25,6 +25,7 @@ from vhr_tpu.pipeline import offline as joffline
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 from vhr_tpu.validation import cpu_reference_green_avg
 
+from vhr_tpu_torch.config import BAND_ANALYSIS, PipelineConfig
 from vhr_tpu_torch.dsp import filters as tfilters
 from vhr_tpu_torch.dsp import spectral as tspectral
 from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
@@ -32,7 +33,9 @@ from vhr_tpu_torch.ops import windows as twin
 from vhr_tpu_torch.pipeline import offline as toffline
 
 FPS = 30.0
-CFG = PipelineConfig(window_seconds=4.0, acquisition_seconds=2.0)
+# The same configuration built in each package from the same arguments.
+_CFG_ARGS = dict(window_seconds=4.0, acquisition_seconds=2.0)
+JCFG, CFG = jconfig.PipelineConfig(**_CFG_ARGS), PipelineConfig(**_CFG_ARGS)
 MEANS_TOL = dict(rtol=1e-6, atol=1e-5)
 
 
@@ -67,7 +70,7 @@ def test_forward_fill_matches_jax(init, channels):
 def test_estimate_bpm_matches_jax(n):
     rng = np.random.default_rng(n)
     x = rng.normal(size=(64, n)).astype(np.float32)
-    ref = jspectral.estimate_bpm(jnp.asarray(x), FPS, BAND_ANALYSIS)
+    ref = jspectral.estimate_bpm(jnp.asarray(x), FPS, jconfig.BAND_ANALYSIS)
     got = tspectral.estimate_bpm(torch.as_tensor(x), FPS, BAND_ANALYSIS)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     _assert_bpm_close(got.bpm.numpy(), ref.bpm, np.ones(64, bool),
@@ -82,7 +85,7 @@ def test_rolling_bpm_fft_matches_jax():
     rng = np.random.default_rng(5)
     sig = (v.pulse + 0.5 * rng.normal(size=v.pulse.shape)).astype(np.float32)
     W, A = CFG.window_len(FPS), CFG.acquisition_len(FPS)
-    ref = jwin.rolling_bpm_fft(jnp.asarray(sig), FPS, CFG.band, W, A)
+    ref = jwin.rolling_bpm_fft(jnp.asarray(sig), FPS, JCFG.band, W, A)
     got = twin.rolling_bpm_fft(torch.as_tensor(sig), FPS, CFG.band, W, A)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     _assert_bpm_close(got.bpm.numpy(), ref.bpm, np.asarray(ref.valid),
@@ -90,7 +93,8 @@ def test_rolling_bpm_fft_matches_jax():
     # The N < 8 rule and an acquisition longer than the clip.
     short = twin.rolling_bpm_fft(torch.as_tensor(sig[:20]), FPS, CFG.band,
                                  10, 3)
-    ref_s = jwin.rolling_bpm_fft(jnp.asarray(sig[:20]), FPS, CFG.band, 10, 3)
+    ref_s = jwin.rolling_bpm_fft(jnp.asarray(sig[:20]), FPS, JCFG.band, 10,
+                                 3)
     np.testing.assert_array_equal(short.valid.numpy(),
                                   np.asarray(ref_s.valid))
     assert not twin.rolling_bpm_fft(torch.as_tensor(sig[:5]), FPS, CFG.band,
@@ -116,11 +120,11 @@ def jax_measures(synth_clip):
     out = {}
     for de in (1, 3):
         out[("xla", de)] = (
-            joffline.extract_signals(frames, CFG, detect_every=de),
-            joffline.measure_green_avg(frames, FPS, CFG, detect_every=de))
+            joffline.extract_signals(frames, JCFG, detect_every=de),
+            joffline.measure_green_avg(frames, FPS, JCFG, detect_every=de))
     out[("fused", 1)] = (
-        joffline.extract_signals(frames, CFG, use_pallas="fused"),
-        joffline.measure_green_avg(frames, FPS, CFG, use_pallas="fused"))
+        joffline.extract_signals(frames, JCFG, use_pallas="fused"),
+        joffline.measure_green_avg(frames, FPS, JCFG, use_pallas="fused"))
     return out
 
 

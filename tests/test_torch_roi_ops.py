@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from vhr_tpu.config import ROIConfig
+from vhr_tpu import config as jconfig
 from vhr_tpu.models import skin_detector as jdet
 from vhr_tpu.ops import reduce as vreduce
 from vhr_tpu.ops import roi as vroi
@@ -22,6 +22,7 @@ from vhr_tpu.ops.pallas_roi import roi_channel_means_pallas
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch import interop
+from vhr_tpu_torch.config import ROIConfig
 from vhr_tpu_torch.models import skin_detector as tdet
 from vhr_tpu_torch.ops import reduce as treduce
 from vhr_tpu_torch.ops import roi as troi
@@ -42,12 +43,12 @@ def test_roi_geometry_matches_jax(seed):
     y1 = rng.integers(-5, H, 64)
     boxes = np.stack([x1, y1, x1 + rng.integers(-3, 90, 64),
                       y1 + rng.integers(-3, 90, 64)], -1).astype(np.int32)
-    cfg = ROIConfig()
+    cfg, jcfg = ROIConfig(), jconfig.ROIConfig()
     jb, tb = jnp.asarray(boxes), torch.as_tensor(boxes)
     for site in ("cheek", "forehead"):
         np.testing.assert_array_equal(
             troi.measurement_roi(tb, cfg, W, H, site).numpy(),
-            _np(vroi.measurement_roi(jb, cfg, W, H, site)))
+            _np(vroi.measurement_roi(jb, jcfg, W, H, site)))
     np.testing.assert_array_equal(
         troi.roi_from_bbox(tb, 0.3, 0.1, 0.7, W, H).numpy(),
         _np(vroi.roi_from_bbox(jb, 0.3, 0.1, 0.7, W, H)))

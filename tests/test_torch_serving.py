@@ -125,7 +125,7 @@ def test_k4_plain_matches_pallas(kw):
 def test_pool_matches_jax_pool(clips, use_fused, detect_every):
     jcfg, cfg = _cfgs(use_fused=use_fused, detect_every=detect_every)
     ref = _drive(jserving.BpmServer(jcfg, n_slots=3, donate=False), *clips)
-    got = _drive(serving.BpmServer(cfg, n_slots=3), *clips)
+    got = _drive(serving.BpmServer(cfg, n_slots=3, device="cpu"), *clips)
     _assert_pools_equal(got, ref)
     assert got[-1][0].bpm_valid
 
@@ -134,7 +134,7 @@ def test_pool_slots_equal_single_stream_step(clips):
     """Each fused slot is the port's single-stream fused step on its own
     frames, exactly: a late attacher detects on its own first frame."""
     _, cfg = _cfgs(use_fused=True, detect_every=4, gate_margin=0.5)
-    pool = serving.BpmServer(cfg, n_slots=2)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
     a = pool.attach()
     st_b = live.init_state(cfg)
     for t, f in enumerate(clips[0]):
@@ -161,7 +161,7 @@ def test_jax_snapshot_restores_into_port_pool(clips, use_fused, tmp_path):
     jpool = jserving.BpmServer(jcfg, n_slots=3, donate=False)
     _drive(jpool, *clips, stop=25)
     np.savez(tmp_path / "jax.npz", **jpool.snapshot())
-    pool = serving.BpmServer(cfg, n_slots=3)
+    pool = serving.BpmServer(cfg, n_slots=3, device="cpu")
     with np.load(tmp_path / "jax.npz") as snap:
         pool.restore(snap)
     assert pool.active_slots == jpool.active_slots == [0, 1]
@@ -181,7 +181,7 @@ def test_jax_snapshot_restores_into_port_pool(clips, use_fused, tmp_path):
 
 def test_legacy_snapshot_and_missing_field(clips, capsys):
     _, cfg = _cfgs()
-    pool = serving.BpmServer(cfg, n_slots=2)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
     s = pool.attach()
     for f in clips[0][:12]:
         pool.tick({s: f})
@@ -190,15 +190,15 @@ def test_legacy_snapshot_and_missing_field(clips, capsys):
     legacy = {f"leaf{i}": snap[f"state.{k}"] for i, k in enumerate(fields)}
     legacy.update(attached=snap["attached"], needs_reset=snap["needs_reset"],
                   tick_count=snap["tick_count"])
-    p2 = serving.BpmServer(cfg, n_slots=2)
+    p2 = serving.BpmServer(cfg, n_slots=2, device="cpu")
     p2.restore(legacy)
     np.testing.assert_array_equal(p2.snapshot()["state.ring_filt"],
                                   snap["state.ring_filt"])
     del legacy["leaf8"]
     with pytest.raises(ValueError, match="leaves"):
-        serving.BpmServer(cfg, n_slots=2).restore(legacy)
+        serving.BpmServer(cfg, n_slots=2, device="cpu").restore(legacy)
     older = {k: v for k, v in snap.items() if k != "state.ring_bgr"}
-    p3 = serving.BpmServer(cfg, n_slots=2)
+    p3 = serving.BpmServer(cfg, n_slots=2, device="cpu")
     p3.restore(older)
     assert "ring_bgr" in capsys.readouterr().err
     assert not p3.snapshot()["state.ring_bgr"].any()
@@ -213,7 +213,7 @@ def test_tcp_and_ws_replies_equal_tick_outputs(clips):
     """A raw-TCP and a WebSocket client stream into one port pool; every
     reply line equals the single-stream step's output on that frame."""
     _, cfg = _cfgs(use_fused=True, detect_every=3)
-    pool = serving.BpmServer(cfg, n_slots=4)
+    pool = serving.BpmServer(cfg, n_slots=4, device="cpu")
     srv = _serve(pool, clips[0][0].shape[:2])
     port = srv.server_address[1]
     results = {}
@@ -252,7 +252,7 @@ def test_tcp_server_survives_malformed_clients(clips):
     """Garbage hellos and wrong-length frames get an error line and a clean
     hangup; the pool and other clients are unaffected."""
     _, cfg = _cfgs()
-    pool = serving.BpmServer(cfg, n_slots=2)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
     srv = _serve(pool, clips[0][0].shape[:2])
     port = srv.server_address[1]
     for hello in (b"not json at all\n", b"[1, 2, 3]\n"):
@@ -279,7 +279,7 @@ def test_tcp_server_survives_malformed_clients(clips):
 
 def test_auth_token_both_protocols(clips):
     _, cfg = _cfgs()
-    pool = serving.BpmServer(cfg, n_slots=2)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
     srv = _serve(pool, clips[0][0].shape[:2], auth_token="s3cret")
     port = srv.server_address[1]
     with pytest.raises(ConnectionError, match="token"):
@@ -310,20 +310,22 @@ def test_auth_token_both_protocols(clips):
 ])
 def test_pool_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        serving.BpmServer(**kw)
+        serving.BpmServer(device="cpu", **kw)
 
 
 def test_pool_init_and_tick_errors():
     fused = live.LiveConfig(use_fused=True)
     with pytest.raises(ValueError, match="cheek"):
-        serving.BpmServer(dataclasses.replace(fused, roi_site="forehead"))
+        serving.BpmServer(dataclasses.replace(fused, roi_site="forehead"),
+                          device="cpu")
     with pytest.raises(ValueError, match="detector"):
-        serving.BpmServer(fused, detector=lambda f: None)
+        serving.BpmServer(fused, detector=lambda f: None, device="cpu")
     with pytest.raises(ValueError, match="single-face"):
-        serving.BpmServer(fused, k_faces=2)
+        serving.BpmServer(fused, k_faces=2, device="cpu")
     with pytest.raises(ValueError, match="transfer"):
-        serving.BpmServer(transfer="yuv")
-    pool = serving.BpmServer(live.LiveConfig(fps=10.0), n_slots=2)
+        serving.BpmServer(transfer="yuv", device="cpu")
+    pool = serving.BpmServer(live.LiveConfig(fps=10.0), n_slots=2,
+                             device="cpu")
     s = pool.attach()
     with pytest.raises(KeyError, match="not attached"):
         pool.tick({s + 1: np.zeros((48, 128, 3), np.uint8)})

@@ -3,19 +3,20 @@
 The JAX package stays the reference; this package mirrors its layout
 (``dsp/``, ``ops/``, ``models/``, ``pipeline/``) and function names so each
 function has an obvious counterpart.  It imports ``torch`` and never
-``jax``: the only ``vhr_tpu`` modules it uses are the jax-free ones
-(``vhr_tpu.config``, ``vhr_tpu.utils.synth`` and
-``vhr_tpu.validation.cpu_reference_green_avg``).
+``jax``, and nothing of ``vhr_tpu``: what it needs of the JAX package's
+jax-free modules it keeps as its own copies (``config``, ``dsp.design``,
+``io.video``, ``validation.cpu_reference_green_avg``).
 
 Each ported Pallas kernel is hand-written CUDA C++ for ``sm_90a`` under
-``csrc/``, built with ``nvcc`` on first use (``_build.py``).  On CPU tensors every kernel wrapper runs its plain PyTorch
-version instead.
+``csrc/``, built with ``nvcc`` on first use (``_build.py``).  On CPU
+tensors every kernel wrapper runs its plain PyTorch version instead.  Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from vhr_tpu import config  # noqa: F401
-from vhr_tpu.config import (  # noqa: F401
+from . import config  # noqa: F401
+from .config import (  # noqa: F401
     BAND_ANALYSIS,
     BAND_LIVE,
     BAND_VIDEO,

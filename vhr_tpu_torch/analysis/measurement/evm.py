@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vhr_tpu.config import BAND_ANALYSIS, HRBand
-
+from ...config import BAND_ANALYSIS, HRBand
+from ...device import resolve_device
 from ...dsp import spectral
+from ...io import video as vio
 from ...ops import windows as vwin
 from ...pipeline import evm, offline
 
@@ -22,18 +23,17 @@ ACQUISITION_TIME = 10.0
 LEVELS = 3
 
 
-def measure(video_path: str) -> np.ndarray:
+def measure(video_path: str, device=None) -> np.ndarray:
     """``(N, 2)`` ``[t_sec, bpm]`` rows of the EVM measure of a video file.
 
-    Decoding goes through ``vhr_tpu.io.video.read_video`` (OpenCV); the
-    frames go to the CUDA card when there is one.
+    Decoding goes through :func:`vhr_tpu_torch.io.video.read_video`
+    (OpenCV); the frames go to ``device``: the CUDA card by default (raises
+    without one), the CPU only with ``device="cpu"``.
     """
-    from vhr_tpu.io import video as vio
-
+    device = resolve_device(device)
     frames, fps = vio.read_video(video_path)
     if frames.shape[0] == 0:
         return np.empty((0, 2))
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     return _measure_frames(torch.as_tensor(frames, device=device), fps)
 
 

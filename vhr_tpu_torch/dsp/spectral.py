@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from vhr_tpu.config import HRBand
+from ..config import HRBand
 
 __all__ = ["BPMEstimate", "bpm_peak_from_spectrum", "estimate_bpm",
            "estimate_bpm_multichannel", "estimate_bpm_multichannel_exact"]

@@ -17,8 +17,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from vhr_tpu.config import HRBand, ROIConfig
-
+from .config import HRBand, ROIConfig
 from .models.skin_detector import SkinDetectorConfig
 from .ops.roi import HoldoverCarry
 from .pipeline.live import LiveConfig, LiveState

@@ -22,9 +22,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from vhr_tpu.config import ROIConfig
-
 from .. import _build
+from ..config import ROIConfig
 from ..models.skin_detector import SkinDetectorConfig, ycbcr_from_bgr
 from .reduce import roi_channel_means
 

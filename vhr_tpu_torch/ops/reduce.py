@@ -1,30 +1,55 @@
 """Per-frame ROI channel means (plain PyTorch).
 
 Port of ``vhr_tpu/ops/reduce.py::roi_channel_means``, and the plain version
-of the K2 kernel (``ops/roi_means_cuda.py``).  The masked sums are taken in
-float64, where sums of u8 pixels are exact integers, so the result is
-independent of summation order and equals the kernel's integer sums.
+of the K2 and K3 kernels (``ops/roi_means_cuda.py``).  The masked sums are
+taken in float64, where sums of u8 pixels are exact integers, so the result
+is independent of summation order and equals the kernels' integer sums.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["roi_channel_means"]
+__all__ = ["roi_channel_means", "frame_layout"]
 
 # Frames reduced per step: bounds the float64 copy (16 frames of 1080p BGR
 # are 0.8 GB) independently of the clip length.
 _FRAME_CHUNK = 16
 
 
-def roi_channel_means(frames: torch.Tensor, rois: torch.Tensor
+def frame_layout(frames: torch.Tensor, channels: int = 3,
+                 width: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """``(T, H, W, C)`` of ``(T, H, W, C)`` frames, or of flat ``(T, H,
+    row_bytes)`` frames whose rows hold ``W * channels`` interleaved pixel
+    bytes and then padding (``width`` gives ``W``; it defaults to
+    ``row_bytes // channels``, which must then divide evenly)."""
+    if frames.dim() == 4:
+        return tuple(frames.shape)
+    if frames.dim() != 3:
+        raise ValueError(f"frames must be (T,H,W,C) or (T,H,row_bytes), got "
+                         f"{tuple(frames.shape)}")
+    T, H, row_bytes = frames.shape
+    if width is None:
+        if row_bytes % channels:
+            raise ValueError(f"flat row width {row_bytes} is not a multiple "
+                             f"of channels={channels}; pass width")
+        width = row_bytes // channels
+    if width < 0 or width * channels > row_bytes:
+        raise ValueError(f"width {width} x {channels} channels does not fit "
+                         f"a row of {row_bytes} bytes")
+    return T, H, width, channels
+
+
+def roi_channel_means(frames: torch.Tensor, rois: torch.Tensor,
+                      channels: int = 3, width: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean of each color channel over a per-frame ROI rectangle.
 
     Args:
-      frames: ``(T, H, W, C)`` uint8 (or float).
+      frames: ``(T, H, W, C)`` uint8 (or float), or flat ``(T, H,
+        row_bytes)`` with padded rows (:func:`frame_layout`).
       rois: ``(T, 4)`` int ``[x1, y1, x2, y2]`` (x2/y2 exclusive).  Pixels
         outside the frame contribute nothing; ``count`` is the unclipped
         area.
@@ -33,7 +58,9 @@ def roi_channel_means(frames: torch.Tensor, rois: torch.Tensor
       ``(means, count)`` — ``(T, C)`` float32 channel means (0 where the ROI
       is empty) and ``(T,)`` float32 pixel counts.
     """
-    T, H, W, C = frames.shape
+    T, H, W, C = frame_layout(frames, channels, width)
+    if frames.dim() == 3:
+        frames = frames[..., :W * C].reshape(T, H, W, C)
     dev = frames.device
     rois = rois.to(device=dev, dtype=torch.int64)
     x1, y1, x2, y2 = rois.unbind(-1)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from vhr_tpu.config import ROIConfig
+from ..config import ROIConfig
 
 __all__ = ["BoxTrack", "roi_from_bbox", "cheek_roi", "forehead_roi",
            "measurement_roi", "holdover", "holdover_with_carry",

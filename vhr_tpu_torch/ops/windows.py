@@ -15,8 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vhr_tpu.config import HRBand
-
+from ..config import HRBand
 from ..dsp import spectral
 
 __all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft", "rolling_bpm"]

@@ -24,8 +24,7 @@ import math
 import numpy as np
 import torch
 
-from vhr_tpu.config import EVMConfig, HRBand
-
+from ..config import EVMConfig, HRBand
 from ..ops import color
 from ..ops.evm_cuda import yiq_pyrdown
 from ..ops.evm_recon_cuda import evm_reconstruct, upsample

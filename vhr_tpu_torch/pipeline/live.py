@@ -31,8 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from vhr_tpu.config import BAND_LIVE, HRBand, ROIConfig
-
+from ..config import BAND_LIVE, HRBand, ROIConfig
 from ..dsp import design, filters
 from ..models import skin_detector
 from ..ops import roi as vroi

@@ -1,4 +1,4 @@
-"""The offline green-channel measure: whole-clip tensor programs.
+"""The offline green-channel measure: whole-clip and streaming.
 
 Port of the main path of ``vhr_tpu/pipeline/offline.py``:
 
@@ -10,27 +10,38 @@ in its two forms: the detect-then-reduce form (:func:`extract_signals`,
 with the K2 ROI kernel under ``use_pallas="roi"``) and the fused form
 (:func:`extract_signals_fused`, kernel K1).  ``use_pallas`` keeps the JAX
 package's name and values so callers of both packages read alike.
+
+:func:`extract_signals_streaming` and :func:`measure_green_avg_file` run
+the same two forms over a video file in chunks (bounded memory for long
+recordings), with the tracking state carried across chunk boundaries so
+the results equal a whole-clip pass; the detect-then-reduce chunks take
+their ROI means on kernel K3.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vhr_tpu.config import PipelineConfig
-
+from ..config import PipelineConfig
+from ..device import resolve_device
 from ..dsp.filters import forward_fill
+from ..io.video import ChunkReader
 from ..models import skin_detector
 from ..ops import reduce as vreduce
 from ..ops import roi as vroi
 from ..ops import windows as vwin
-from ..ops.fused_cuda import fused_detect_roi_cuda
-from ..ops.roi_means_cuda import roi_channel_means_cuda
+from ..ops.fused_cuda import (fused_detect_roi_carry, fused_detect_roi_cuda,
+                              init_carry)
+from ..ops.roi_means_cuda import (roi_channel_means_batched_cuda,
+                                  roi_channel_means_cuda)
 
 __all__ = ["SignalTrace", "extract_signals", "extract_signals_fused",
-           "measure_green_avg", "to_measurement_array"]
+           "extract_signals_streaming", "measure_green_avg",
+           "measure_green_avg_file", "to_measurement_array"]
 
 # A detector maps (T, H, W, 3) u8 -> ((T, 4) int32 boxes, (T,) bool valid).
 DetectorFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -74,7 +85,23 @@ def extract_signals(frames: torch.Tensor,
     if use_pallas not in (False, "roi"):
         raise ValueError(f"unknown use_pallas {use_pallas!r} "
                          "(False | 'roi' | 'fused')")
-    det_fn = detector or skin_detector.detect_faces
+    track, rois, _ = _track(frames, cfg, detector or
+                            skin_detector.detect_faces, detect_every)
+    if use_pallas == "roi":
+        means, _ = roi_channel_means_cuda(frames, rois)
+    else:
+        means, _ = vreduce.roi_channel_means(frames, rois)
+    return SignalTrace(bgr=means, valid=track.valid, rois=rois,
+                       boxes=track.box)
+
+
+def _track(frames: torch.Tensor, cfg: PipelineConfig, det_fn: DetectorFn,
+           detect_every: int,
+           carry: Optional[vroi.HoldoverCarry] = None
+           ) -> Tuple[vroi.BoxTrack, torch.Tensor, vroi.HoldoverCarry]:
+    """Detector (on every ``detect_every``-th frame, from the first),
+    holdover from ``carry`` and the measurement ROI (zeroed where the track
+    is invalid): ``(track, rois, carry_out)``."""
     T, H, W, _ = frames.shape
     dev = frames.device
     if detect_every > 1:
@@ -88,16 +115,12 @@ def extract_signals(frames: torch.Tensor,
     else:
         raw_boxes, raw_valid = det_fn(frames)
         attempted = None
-    track = vroi.holdover(raw_boxes, raw_valid, cfg.roi.landmark_hold_frames,
-                          attempted=attempted)
+    track, carry = vroi.holdover_with_carry(
+        raw_boxes, raw_valid, cfg.roi.landmark_hold_frames, carry,
+        attempted=attempted)
     rois = vroi.measurement_roi(track.box, cfg.roi, W, H, cfg.roi_site)
     rois = torch.where(track.valid[:, None], rois, 0)
-    if use_pallas == "roi":
-        means, _ = roi_channel_means_cuda(frames, rois)
-    else:
-        means, _ = vreduce.roi_channel_means(frames, rois)
-    return SignalTrace(bgr=means, valid=track.valid, rois=rois,
-                       boxes=track.box)
+    return track, rois, carry
 
 
 def extract_signals_fused(frames: torch.Tensor,
@@ -159,6 +182,162 @@ def measure_green_avg(frames: torch.Tensor, fps: float,
     ts = np.arange(frames.shape[0]) / fps
     valid = rolling.valid & trace.valid
     return ts, rolling.bpm.cpu().numpy(), valid.cpu().numpy()
+
+
+def _stream(video_path: str, cfg: PipelineConfig,
+            detector: Optional[DetectorFn], chunk_frames: int,
+            use_fused: bool, detect_row_pool: int,
+            gate_margin: Optional[float], detect_every: int,
+            device: torch.device
+            ) -> Tuple[torch.Tensor, torch.Tensor, float, float, float]:
+    """The chunked pass of :func:`extract_signals_streaming`, its outputs
+    left on ``device``: ``(bgr (T, 3), valid (T,), fps, seconds waiting on
+    the reader, seconds in the chunk steps)``."""
+    if use_fused and detector is not None:
+        raise ValueError("use_fused streams through the skin-detector "
+                         "kernel; pass detector=None")
+    if detect_every > 1 and chunk_frames % detect_every != 0:
+        # Every chunk starts on a detection frame, so the per-chunk stride
+        # [0::N] stays on the global cadence.
+        raise ValueError("detect_every must divide chunk_frames")
+    if use_fused:
+        carry = init_carry(device)
+
+        def step(frames, start, carry):
+            res, carry = fused_detect_roi_carry(
+                frames, carry, roi=cfg.roi, detect_every=detect_every,
+                detect_row_pool=detect_row_pool, gate_margin=gate_margin,
+                phase=start)
+            return res.means, res.roi_valid, carry
+    else:
+        det_fn = detector or skin_detector.detect_faces
+        carry = vroi.init_holdover_carry(device)
+
+        def step(frames, start, carry):
+            track, rois, carry = _track(frames, cfg, det_fn, detect_every,
+                                        carry)
+            means, _ = roi_channel_means_batched_cuda(frames, rois)
+            return means, track.valid, carry
+
+    bgr_parts, valid_parts = [], []
+    t_wait = t_step = 0.0
+    with ChunkReader(video_path, chunk_frames, device) as reader:
+        fps = reader.fps
+        chunks = iter(reader)
+        while True:
+            t0 = time.perf_counter()
+            item = next(chunks, None)        # blocks on the decode thread
+            t_wait += time.perf_counter() - t0
+            if item is None:
+                break
+            t0 = time.perf_counter()
+            frames, start = item
+            means, valid, carry = step(frames, start, carry)
+            bgr_parts.append(means)
+            valid_parts.append(valid)
+            t_step += time.perf_counter() - t0
+    if not bgr_parts:
+        return (torch.zeros((0, 3), device=device),
+                torch.zeros((0,), dtype=torch.bool, device=device), 0.0,
+                t_wait, t_step)
+    return (torch.cat(bgr_parts), torch.cat(valid_parts), float(fps), t_wait,
+            t_step)
+
+
+def extract_signals_streaming(video_path: str,
+                              cfg: PipelineConfig = PipelineConfig(),
+                              detector: Optional[DetectorFn] = None,
+                              chunk_frames: int = 256,
+                              prefer_native: bool = True,
+                              use_fused: bool = False,
+                              detect_row_pool: int = 1,
+                              gate_margin: Optional[float] = None,
+                              ring_stats: Optional[dict] = None,
+                              n_decoders: int = 1,
+                              detect_every: int = 1,
+                              transfer: str = "bgr",
+                              device=None
+                              ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Chunked-decode signal extraction for long recordings.
+
+    Frames stream from the file in chunks of ``chunk_frames``
+    (:class:`vhr_tpu_torch.io.video.ChunkReader`: cv2 decode one chunk ahead
+    on a thread, pinned buffers, copies to the card on a side stream); the
+    detector and ROI reduction run per chunk with the holdover state carried
+    across chunk boundaries, so the results equal a whole-clip pass.  The
+    chunk steps' outputs stay on ``device`` and come back to the host once,
+    at the end.
+
+    * Detect-then-reduce (default): the detector (every ``detect_every``-th
+      frame), ``roi.holdover_with_carry``, the measurement ROI, then the ROI
+      means on kernel K3 (its plain version on the CPU).
+    * ``use_fused=True``: one K1 launch per chunk
+      (:func:`vhr_tpu_torch.ops.fused_cuda.fused_detect_roi_carry` with the
+      chunk's first global frame index as ``phase``), its ``(6,)`` carry
+      kept on the card between chunks; ``detect_row_pool`` and
+      ``gate_margin`` are its knobs.  Needs ``H % 8 == 0``, ``W*3 % 128 ==
+      0`` and ``detector=None``.
+
+    ``detect_every`` must divide ``chunk_frames``.  The port has no native
+    framestore (it needs OpenCV's C++ headers), so ``prefer_native``,
+    ``n_decoders`` and ``transfer="i420"`` take the JAX package's branch for
+    an absent native reader: one cv2 decoder staging BGR.
+
+    Returns ``(bgr (T, 3) float32, valid (T,) bool, fps)`` as host numpy.
+    If ``ring_stats`` is a dict it receives ``host_wait_on_decode_s`` (time
+    blocked on the reader), ``device_dispatch_fetch_s`` (the chunk steps
+    and the final fetch), their ``verdict`` (``"decode-bound"`` or
+    ``"device-bound"``) and ``decode_wait_fraction``.  ``device`` defaults
+    to the CUDA card (raises without one); pass ``device="cpu"`` for the
+    CPU.
+    """
+    del prefer_native, n_decoders
+    if transfer not in ("bgr", "i420"):
+        raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
+    bgr, valid, fps, t_wait, t_dev = _stream(
+        video_path, cfg, detector, chunk_frames, use_fused, detect_row_pool,
+        gate_margin, detect_every, resolve_device(device))
+    t0 = time.perf_counter()
+    bgr, valid = bgr.cpu().numpy(), valid.cpu().numpy()
+    t_dev += time.perf_counter() - t0
+    if ring_stats is not None:
+        ring_stats["host_wait_on_decode_s"] = round(t_wait, 3)
+        ring_stats["device_dispatch_fetch_s"] = round(t_dev, 3)
+        total = t_wait + t_dev
+        ring_stats["verdict"] = ("decode-bound" if t_wait > t_dev
+                                 else "device-bound")
+        ring_stats["decode_wait_fraction"] = (round(t_wait / total, 3)
+                                              if total > 0 else 0.0)
+    return bgr, valid, fps
+
+
+def measure_green_avg_file(video_path: str,
+                           cfg: PipelineConfig = PipelineConfig(),
+                           detector: Optional[DetectorFn] = None,
+                           chunk_frames: int = 256,
+                           use_fused: bool = False,
+                           detect_row_pool: int = 1,
+                           gate_margin: Optional[float] = None,
+                           detect_every: int = 1,
+                           device=None
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Streaming-decode variant of :func:`measure_green_avg` (bounded
+    memory): the chunked pass of :func:`extract_signals_streaming`, then
+    forward-fill and the rolling BPM on ``device`` (the CUDA card by
+    default).  Returns ``(timestamps, bpm, valid)`` numpy arrays."""
+    bgr, valid, fps, _, _ = _stream(
+        video_path, cfg, detector, chunk_frames, use_fused, detect_row_pool,
+        gate_margin, detect_every, resolve_device(device))
+    T = bgr.shape[0]
+    if T == 0:
+        return np.zeros(0), np.zeros(0, np.float32), np.zeros(0, bool)
+    green = _fill_invalid(bgr[:, cfg.channel], valid)
+    rolling = vwin.rolling_bpm(green, fps, cfg.band, cfg.window_len(fps),
+                               cfg.acquisition_len(fps),
+                               estimator=cfg.estimator,
+                               segment_seconds=cfg.welch.segment_seconds)
+    ok = (rolling.valid & valid).cpu().numpy()
+    return np.arange(T) / fps, rolling.bpm.cpu().numpy(), ok
 
 
 def to_measurement_array(ts: np.ndarray, bpm: np.ndarray,

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from . import interop
+from .device import resolve_device
 from .pipeline.live import (DetectorFn, LiveConfig, LiveOutput, LiveState,
                             _check_fused, _check_method, _finish_batched,
                             _fused_track, _skin_track, _sos, _zero_state,
@@ -117,8 +118,9 @@ class BpmServer:
     >>> outs[a].bpm, outs[b].bpm
 
     All clients share one frame geometry per server.  Frames are ``(H, W,
-    3)`` uint8 BGR numpy arrays or tensors; the state lives on ``device``
-    (the CUDA card when there is one).
+    3)`` uint8 BGR numpy arrays or tensors; the state lives on ``device``:
+    the CUDA card by default (raises without one), the CPU only with
+    ``device="cpu"``.
     """
 
     def __init__(self, cfg: LiveConfig = LiveConfig(), n_slots: int = 8,
@@ -142,12 +144,7 @@ class BpmServer:
                 "a pool sharded over devices is not yet ported (ROADMAP "
                 "queue 1, item 14)")
         _check_method(cfg)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.k_faces = k_faces
