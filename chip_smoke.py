@@ -47,7 +47,29 @@ Phases, each of which must pass (any failure exits non-zero):
    flagship clip: K6 launched, >= 95% of post-acquisition frames valid, BPM
    MAE at most 4 against the 72 BPM truth, and at T=64 the kernel route's
    pulse trace within ``rtol=1e-3, atol=1e-6`` of the plain route's;
-7. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+7. the production MediaPipe detector (the bundled BlazeFace and 478-point
+   mesh nets, uncut) on a 1080p, T=960 clip of the schematic face of
+   ``tests/test_mediapipe_face.py`` drawn 4.2x its size with cv2, swaying
+   3 px, a 72 BPM green pulse on its skin ellipse and 0-7 u8 noise, made on
+   the card.  K5 against its plain version at the mesh net's four stage
+   shapes with the bundled weights, B=64, float32 (within 1e-5 of max|y|)
+   and bfloat16 (one bf16 ulp, or 1e-5 of max|y| near zero); the float32
+   executor, unfused and with its stages on K5, against the numpy oracle on
+   a letterboxed frame and a face crop (the JAX package's bounds, 2e-5 and
+   3e-4 of max|y|).  Then ``measure_green_avg(detector=...,
+   use_pallas="roi")`` with the detector of ``load_face_models(
+   fuse_stages=True)`` at the product default (bf16 activations, axis
+   crop): K5 and K2 launched, >= 95% of post-acquisition frames valid, BPM
+   MAE at most 0.5 against the numpy reference on its green trace, the
+   landmark box's IoU with the skin ellipse's box at least 0.5 on every
+   valid frame.  The unfused product detector must agree: validity equal
+   on >= 99% of frames, landmark RMS within the JAX package's bf16 bound
+   (1.5 px on its test face, taken into the mesh net's 256-px crop with
+   the ROI the detector finds on that face here).  Times: the measure
+   and detection alone, fused and unfused, the card's busy share in one
+   profiled run of the fused measure; K5 per stage, its plain version and
+   the same 25 ops unfused (cuDNN, op by op);
+8. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
    use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
    at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
    and sway phase; slots attach in a staggered order, one slot skips every
@@ -57,11 +79,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ring is full must report the ``scipy.signal.welch`` peak of its last 500
    filtered samples.  Then the same population through the skin-detector
    tick (``use_fused=False``, ROI means on K2);
-8. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+9. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
    of the truth; then 10 one-frame round trips each;
-9. time each pool tick (device time, and wall time with the host-to-card
+10. time each pool tick (device time, and wall time with the host-to-card
    upload and the fetch) and each kernel against its plain version, with
    CUDA events (median of 3 after a warm-up); both offline forms are timed
    right after phase 4, the fused one again at the end, and the EVM path
@@ -69,14 +91,16 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The launch counters are set to 0 just before each of the main paths (the
 offline measure, the two streams and the file measure, ``magnify``, the EVM
-measure, the fused pool, the skin pool, the server) and read just after.
+measure, the MediaPipe measure, the fused pool, the skin pool, the server)
+and read just after.
 The line before the last is the kernels' JSON record: per kernel its time
 and its plain version's, and ``bound_ms``, the least time the card could
 take for the same work: the larger of the bytes it must move (inputs read
 once, outputs written once; for the ROI kernels the ROI bytes of this run's
 boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
 CUDA cores).  No single PyTorch call computes any of these functions, so
-``library_ms`` is null.  The last line is ``{"ok": true, "device":
+``library_ms`` is null (a K5 stage is 25 ops; their unfused time is logged
+beside it).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card the script exits non-zero before printing
 any result; it imports nothing of JAX or of the JAX package.
 """
@@ -115,6 +139,19 @@ K6_ATOL, K7_MAX_FRAC = 1e-6, 1e-3
 EVM_MAE_TOL = 4.0      # tests/test_evm.py's bound
 # Streaming ingest: 960 frames in chunks of 256 (the last one 192).
 STREAM_CHUNK = 256
+# The MediaPipe phase: tests/test_mediapipe_face.py's schematic face drawn
+# 4.2x its size at 1080p (BlazeFace scores it ~0.87 there), swaying 3 px.
+MP_SCALE, MP_SWAY = 4.2, 3
+K5_F32_TOL = 1e-5      # of max|y|: the same sums in another order
+EXEC_TOL = {"face_detector.tflite": 2e-5,            # the JAX package's
+            "face_landmarks_detector.tflite": 3e-4}   # oracle bounds
+# Fused against unfused landmarks: the JAX package's bf16 bound, 1.5 px RMS
+# (tests/test_mediapipe_face.py:341-342), holds for its 256x320 face.  The
+# mesh net's error lives in its 256-px crop and is scaled by the ROI side
+# when it is projected, so the bound is applied in crop pixels: 1.5 * 256 /
+# the ROI side the detector finds on that face, whatever the face's size.
+MP_RMS_PX = 1.5
+MP_IOU_MIN = 0.5
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s and float32 operations/s on the CUDA cores.
 HBM_BPS, F32_OPS = 3.35e12, 67e12
@@ -252,6 +289,37 @@ def wall_ms(fn, reps: int = 3, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
+
+
+def device_profile(fn, top: int = 8):
+    """One call of ``fn`` under ``torch.profiler``: (milliseconds the card
+    was busy, the union of its kernel, copy and set intervals; the ``top``
+    kernels by device time as ``(name, ms, calls)``).  ``(None, [])`` when
+    the profiler traced no device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                            / 1e3, n + 1)
+    if not spans:
+        return None, []
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy / 1e3, [(k, ms, n) for k, (ms, n) in ranked]
 
 
 def bound(nbytes: float, ops: float):
@@ -563,6 +631,358 @@ def run_streaming(dev, frames, cfg) -> dict:
                              f"valid of {expect}, MAE {mae}")
     out["measure_fps"] = T / wall
     return out
+
+
+def draw_face(h: int, w: int, scale: float, cy=None):
+    """``tests/test_mediapipe_face.py``'s schematic face (skin ellipse,
+    hair, eyes, brows, nose, mouth) drawn ``scale`` times its size centred
+    in an ``h x w`` frame (at row ``cy`` if given): ``(u8 BGR image, bool
+    skin-ellipse mask, ellipse box [x1, y1, x2, y2])``."""
+    import cv2
+    import numpy as np
+
+    def s(v):
+        return int(round(v * scale))
+
+    cx, cy, rx, ry = w // 2, h // 2 if cy is None else cy, s(55), s(75)
+    img = np.full((h, w, 3), (60, 70, 80), np.uint8)
+    cv2.ellipse(img, (cx, cy), (rx, ry), 0, 0, 360, (130, 165, 200), -1)
+    cv2.ellipse(img, (cx, cy - ry + s(18)), (rx - s(6), s(26)), 0, 180, 360,
+                (40, 60, 80), -1)
+    for ex in (cx - s(22), cx + s(22)):
+        cv2.circle(img, (ex, cy - s(15)), s(9), (255, 255, 255), -1)
+        cv2.circle(img, (ex, cy - s(15)), s(5), (40, 30, 30), -1)
+        cv2.line(img, (ex - s(12), cy - s(30)), (ex + s(12), cy - s(32)),
+                 (50, 50, 60), s(3))
+    cv2.line(img, (cx, cy - s(5)), (cx - s(6), cy + s(14)), (90, 120, 150),
+             s(3))
+    cv2.ellipse(img, (cx, cy + s(34)), (s(18), s(9)), 0, 0, 180,
+                (60, 60, 120), s(3))
+    mask = np.zeros((h, w), np.uint8)
+    cv2.ellipse(mask, (cx, cy), (rx, ry), 0, 0, 360, 1, -1)
+    return img, mask.astype(bool), (cx - rx, cy - ry, cx + rx, cy + ry)
+
+
+def make_face_clip(dev, t: int, h: int, w: int, seed: int = SEED,
+                   chunk: int = 64):
+    """``(t, h, w, 3)`` u8 clip of :func:`draw_face` made on ``dev``: the
+    face sways +-MP_SWAY px (whole pixels), its skin ellipse carries a
+    TRUTH_BPM green pulse of 2 u8, 0-7 u8 of seeded sensor noise; and the
+    ``(t, 4)`` float ellipse boxes."""
+    import torch
+
+    img, mask, box = draw_face(h, w, MP_SCALE)
+    base = torch.as_tensor(img, device=dev).to(torch.float32)
+    skin = torch.as_tensor(mask, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.empty((t, h, w, 3), dtype=torch.uint8, device=dev)
+    ts = torch.arange(t, dtype=torch.float64) / FPS
+    dx = torch.round(MP_SWAY * torch.sin(2 * math.pi * 0.1 * ts)).long()
+    pulse = 2.0 * torch.sin(2 * math.pi * TRUTH_BPM / 60.0 * ts)
+    for s0 in range(0, t, chunk):
+        idx = range(s0, min(t, s0 + chunk))
+        img_c = torch.stack([torch.roll(base, int(dx[i]), 1) for i in idx])
+        on = torch.stack([torch.roll(skin, int(dx[i]), 1) for i in idx])
+        amp = pulse[list(idx)].to(device=dev, dtype=torch.float32)
+        img_c[..., 1] += on * amp[:, None, None]
+        img_c += torch.randint(0, 8, img_c.shape, generator=gen,
+                               device=dev).to(torch.float32)
+        frames[s0:s0 + len(idx)] = img_c.clamp(0, 255).to(torch.uint8)
+    boxes = torch.tensor(box, dtype=torch.float64).repeat(t, 1)
+    boxes[:, 0::2] += dx[:, None].double()
+    return frames, boxes
+
+
+def box_iou(a, b):
+    """IoU of corresponding ``[x1, y1, x2, y2]`` rows (float tensors)."""
+    import torch
+
+    lt = torch.maximum(a[:, :2], b[:, :2])
+    rb = torch.minimum(a[:, 2:], b[:, 2:])
+    inter = (rb - lt).clamp(min=0).prod(1)
+    area = lambda x: (x[:, 2:] - x[:, :2]).clamp(min=0).prod(1)
+    return inter / (area(a) + area(b) - inter)
+
+
+def k5_ops(C: int, Cm: int, S: int, n_blocks: int = 4) -> int:
+    """Operations of one residual stage on one frame: per pixel and block
+    4*C*Cm (the two 1x1 convs, a multiply and an add each) + 18*Cm (the
+    3x3 depthwise conv) + 3*Cm (bias, PReLU) + 4*C (bias, residual add,
+    PReLU); 2*C per pixel for the entry PReLU."""
+    return S * (n_blocks * (4 * C * Cm + 21 * Cm + 4 * C) + 2 * C)
+
+
+def detector_split(params, det_apply, lm_fused, lm_plain, frames) -> dict:
+    """Milliseconds of each step of ``mediapipe_face._detect_single`` over
+    ``frames`` in the detector's slices (CUDA events, each step on the
+    previous step's outputs): letterbox, BlazeFace, decode + NMS + ROI,
+    axis crop, the mesh net with its stages on K5 and unfused, and the
+    landmark projection + box."""
+    import torch
+    from vhr_tpu_torch.models import mediapipe_face as mpf
+
+    bf16 = torch.bfloat16
+    n, h, w = frames.shape[:3]
+    sl = mpf._slices(n)
+    anchors = torch.as_tensor(mpf.blazeface_anchors(), device=frames.device)
+    with torch.no_grad():
+        boxed = [mpf._letterbox(frames[s], 128, -1.0, 1.0, bf16) for s in sl]
+        raw = [det_apply(params.det, x) for x in boxed]
+
+        def nms():
+            out = [mpf._weighted_nms(*mpf._decode_detections(r, c, anchors),
+                                     1) for r, c in raw]
+            b, _, kp, _ = (torch.cat(p) for p in zip(*out))
+            r = mpf._detection_to_rect(b, kp, h, w)
+            return r._replace(rot=torch.zeros_like(r.rot))
+
+        rects = nms()
+        crops = [mpf._crop_faces(frames[s], mpf._Rect(*(f[s] for f in rects)),
+                                 256, "axis", bf16)[:, 0] for s in sl]
+        lm = torch.cat([lm_fused(params.lm, c)[0] for c in crops])
+        return {
+            "letterbox": cuda_ms(lambda: [mpf._letterbox(
+                frames[s], 128, -1.0, 1.0, bf16) for s in sl]),
+            "BlazeFace": cuda_ms(lambda: [det_apply(params.det, x)
+                                          for x in boxed]),
+            "decode+NMS+ROI": cuda_ms(nms),
+            "crop": cuda_ms(lambda: [mpf._crop_faces(
+                frames[s], mpf._Rect(*(f[s] for f in rects)), 256, "axis",
+                bf16) for s in sl]),
+            "mesh (K5)": cuda_ms(lambda: [lm_fused(params.lm, c)
+                                          for c in crops]),
+            "mesh (unfused)": cuda_ms(lambda: [lm_plain(params.lm, c)
+                                               for c in crops]),
+            "project+box": cuda_ms(lambda: mpf._landmarks_to_bbox(
+                mpf._project_landmarks(lm.reshape(n, 1, 478, 3), rects)[:, 0],
+                h, w))}
+
+
+def run_mediapipe(dev, cfg) -> dict:
+    """The production MediaPipe detector at 1080p x T: K5 against its plain
+    version at the mesh net's four stages, the executors against the numpy
+    oracle, the offline measure with the fused detector (counters from 0
+    before it, read after), the fused against the unfused detector, then
+    the times."""
+    import copy
+
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.models import mediapipe_face as mpf
+    from vhr_tpu_torch.models import tflite, tflite_exec
+    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+    from vhr_tpu_torch.ops import roi_means_cuda
+    from vhr_tpu_torch.pipeline import offline
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+    t0 = time.perf_counter()
+    frames, ell = make_face_clip(dev, T, H, W, seed=SEED + 8)
+    bf16 = torch.bfloat16
+    params, det_apply, lm_fused = mpf.load_face_models(
+        activation_dtype=bf16, fuse_stages=True)
+    _, _, lm_plain = mpf.load_face_models(activation_dtype=bf16)
+    torch.cuda.synchronize()
+    log(f"[mediapipe] clip {tuple(frames.shape)} and both nets on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    def det(x):
+        return mpf._detect_single(params, det_apply, lm_fused, x)
+
+    # K5 against its plain version at the four stage shapes, bundled
+    # weights, B = the detector's slice (K5's batch on the main path),
+    # random N(0, 1) stage inputs.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    stages = [(st, mb.StageWeights(*(params.lm[f"_fs{start}_{i}"]
+                                     for i in range(9))))
+              for start, st in sorted(lm_fused.stages.items())]
+    k5_err, k5_inputs = 0.0, []
+    for st, wts in stages:
+        C, Hs, Ws = st["C"], st["H"], st["W"]
+        x = torch.randn((mpf._SLICE, C, Hs * Ws), generator=gen, device=dev)
+        k5_inputs.append(x)
+        for dtype in (torch.float32, bf16):
+            xi = x.to(dtype)
+            got = mb.residual_stage(xi, wts, Ws)
+            want = mb.residual_stage_plain(xi, wts, Ws)
+            torch.cuda.synchronize()
+            g, w_ = got.float(), want.float()
+            err = (g - w_).abs()
+            scale = float(w_.abs().max())
+            if dtype == torch.float32:
+                ok = float(err.max()) <= K5_F32_TOL * scale
+            else:
+                big = torch.maximum(g.abs(), w_.abs()).clamp_min(1e-30)
+                ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+                ok = bool((err <= ulp.clamp_min(K5_F32_TOL * scale)).all())
+            if got.dtype != dtype or got.shape != xi.shape or not ok:
+                raise AssertionError(f"K5 {Hs}x{Ws} C={C} {dtype}: max "
+                                     f"|err| {float(err.max())}, max|y| "
+                                     f"{scale}")
+            k5_err = max(k5_err, float(err.max()))
+            log(f"[check] K5 == plain at {Hs}x{Ws} C={C} Cm={st['Cm']} x "
+                f"{mpf._SLICE} {str(dtype)[6:]}: max |err| "
+                f"{float(err.max()):.3g} (max|y| {scale:.3g})")
+
+    # The executors (float32, unfused and fused) against the numpy oracle
+    # on one frame of each net: the clip's letterboxed frame and face crop.
+    graphs = tflite.load_task_models(mpf.default_task_path())
+    rects, _, _ = mpf.detect_faces_mp(params, det_apply, frames[:1])
+    rects = rects._replace(rot=torch.zeros_like(rects.rot))
+    inputs = {"face_detector.tflite":
+              mpf._letterbox(frames[:1], 128, -1.0, 1.0),
+              "face_landmarks_detector.tflite":
+              mpf._crop_faces(frames[:1], rects, 256, "axis")[:, 0]}
+    for name, x in inputs.items():
+        oracle = tflite_exec.NumpyInterpreter(
+            copy.deepcopy(graphs[name].graph))(x.cpu().numpy())
+        for fuse in (False, True) if "landmarks" in name else (False,):
+            p, apply = tflite_exec.build_torch(
+                copy.deepcopy(graphs[name].graph), fuse_stages=fuse)
+            with torch.no_grad():
+                ys = apply(p, x)
+            err = max(float(np.abs(y.cpu().numpy() - o).max())
+                      / max(float(np.abs(o).max()), 1.0)
+                      for y, o in zip(ys, oracle))
+            log(f"[check] executor {name} float32, {len(apply.stages)} "
+                f"stages on K5, == numpy oracle: max |err| / max|y| "
+                f"{err:.3g} (bound {EXEC_TOL[name]:g})")
+            if err > EXEC_TOL[name]:
+                raise AssertionError(f"executor {name} fuse={fuse}: {err}")
+
+    # The main path, counters from 0.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mb.LAUNCHES = roi_means_cuda.LAUNCHES = 0
+    _, bpm, valid = offline.measure_green_avg(frames, FPS, cfg, detector=det,
+                                              use_pallas="roi")
+    torch.cuda.synchronize()
+    launches = {"K5": mb.LAUNCHES, "K2": roi_means_cuda.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[mediapipe] kernel launches in the measure: {launches}; peak "
+        f"device memory above the phase's {peak / 1e9:.3f} GB")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the MediaPipe measure never "
+                             f"launched: {launches}")
+    trace = offline.extract_signals(frames, cfg, detector=det,
+                                    use_pallas="roi")
+    green = offline._fill_invalid(trace.bgr[:, cfg.channel], trace.valid)
+    ref = cpu_reference_green_avg(green.cpu().numpy(), FPS,
+                                  cfg.window_seconds,
+                                  cfg.acquisition_seconds, cfg.band)
+    expect = T - cfg.acquisition_len(FPS)
+    idx = [i for i in ref if valid[i]]
+    mae_ref = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
+               if idx else math.inf)
+    mae_truth = float(abs(bpm[valid] - TRUTH_BPM).mean())
+    tv = trace.valid.cpu()
+    iou = box_iou(trace.boxes.cpu().double()[tv], ell[tv])
+    log(f"[mediapipe] measure: detector valid {int(tv.sum())}/{T} frames; "
+        f"valid {int(valid.sum())}/{expect} post-acquisition frames; BPM "
+        f"MAE vs numpy reference {mae_ref:.4f} over {len(idx)} frames; vs "
+        f"{TRUTH_BPM:g} BPM truth {mae_truth:.4f}; landmark box IoU with "
+        f"the skin ellipse's box min {float(iou.min()):.3f} mean "
+        f"{float(iou.mean()):.3f}")
+    if (valid.sum() < 0.95 * expect or len(idx) < 0.95 * valid.sum()
+            or mae_ref > 0.5 or not np.isfinite(bpm).all()
+            or float(iou.min()) < MP_IOU_MIN):
+        raise AssertionError(f"MediaPipe measure: {int(valid.sum())} valid "
+                             f"of {expect}, MAE {mae_ref}, IoU min "
+                             f"{float(iou.min())}")
+
+    # Fused against unfused: the product detector (unfused nets) and the
+    # landmarks of both mesh nets on the same detections.
+    unfused = mpf.make_mediapipe_detector()
+    b_f, v_f = det(frames)
+    b_u, v_u = unfused(frames)
+    agree = float((v_f == v_u).double().mean())
+    both = v_f & v_u
+    box_d = int((b_f - b_u)[both].abs().max()) if bool(both.any()) else 0
+    with torch.no_grad():
+        rects, _, _ = mpf.detect_faces_mp(params, det_apply, frames)
+        lm_f, _ = mpf.face_landmarks(params, lm_fused, frames, rects)
+        lm_u, _ = mpf.face_landmarks(params, lm_plain, frames, rects)
+        small, _, _ = draw_face(256, 320, 1.0, cy=130)  # the JAX test's
+        ref_rect, _, _ = mpf.detect_faces_mp(
+            params, det_apply, torch.as_tensor(small[None], device=dev))
+    diff = (lm_f - lm_u)[both]
+    rms = float((diff ** 2).mean().sqrt())
+    per_crop = 256.0 / rects.side[both][..., None, None]
+    rms_crop = float(((diff * per_crop) ** 2).mean().sqrt())
+    rms_tol = MP_RMS_PX * 256.0 / float(ref_rect.side)
+    log(f"[mediapipe] fused vs unfused detector: validity equal on "
+        f"{agree:.4f} of {T} frames, boxes within {box_d} px, landmark "
+        f"RMS {rms:.4f} px over {int(both.sum())} frames (ROI side "
+        f"{float(rects.side[both].mean()):.1f} px), {rms_crop:.4f} px of "
+        f"the 256-px crop; bound {MP_RMS_PX:g} px on the JAX test's face "
+        f"(ROI side {float(ref_rect.side):.1f} px) = {rms_tol:.3f} crop px")
+    if agree < 0.99 or rms_crop > rms_tol:
+        raise AssertionError(f"fused vs unfused: agree {agree}, RMS "
+                             f"{rms_crop} crop px")
+
+    # Times (CUDA events, median of 3 after a warm-up).
+    m_ms = {"fused": cuda_ms(lambda: offline.measure_green_avg(
+                frames, FPS, cfg, detector=det, use_pallas="roi")),
+            "unfused": cuda_ms(lambda: offline.measure_green_avg(
+                frames, FPS, cfg, detector=unfused, use_pallas="roi"))}
+    d_ms = {"fused": cuda_ms(lambda: det(frames)),
+            "unfused": cuda_ms(lambda: unfused(frames))}
+    for form in m_ms:
+        log(f"[time] MediaPipe measure ({form} mesh) at {W}x{H} x {T}: "
+            f"{m_ms[form]:.3f} ms = {T / (m_ms[form] / 1e3):.1f} frames/s; "
+            f"detection alone {d_ms[form]:.3f} ms = "
+            f"{d_ms[form] * 1e3 / T:.3f} us/frame")
+    busy, top = device_profile(lambda: offline.measure_green_avg(
+        frames, FPS, cfg, detector=det, use_pallas="roi"))
+    if busy is None:
+        log("[profile] MediaPipe measure (fused mesh): the profiler traced "
+            "no device work; busy share not measured")
+    else:
+        log(f"[profile] MediaPipe measure (fused mesh): the card busy "
+            f"{busy:.3f} ms of the {m_ms['fused']:.3f} ms the measure takes "
+            f"(idle share {1 - busy / m_ms['fused']:.3f}); top kernels (ms, "
+            f"calls): " + "; ".join(f"{k[:60]} {ms:.3f} x{n}"
+                                     for k, ms, n in top))
+    split = detector_split(params, det_apply, lm_fused, lm_plain, frames)
+    log(f"[time] MediaPipe detector at {W}x{H} x {T}, step by step (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    n_slices = -(-T // mpf._SLICE)
+    k5 = {"ms": 0.0, "plain": 0.0, "unfused": 0.0, "bytes": 0.0, "ops": 0.0}
+    for (st, wts), x in zip(stages, k5_inputs):
+        C, Hs, Ws = st["C"], st["H"], st["W"]
+        xb = x.to(bf16)
+        ops = lm_plain.graph.operators[st["start"]:st["start"] + st["n_ops"]]
+
+        def op_by_op():
+            env = {st["in_tensor"]: xb.reshape(mpf._SLICE, C, Hs, Ws)}
+            get = lambda i: env[i] if i in env else params.lm[str(i)]
+            for op in ops:
+                env[op.outputs[0]] = lm_plain._op(op, get,
+                                                  lm_plain.graph.tensors)
+            return env[st["out_tensor"]]
+
+        with torch.no_grad():
+            t_k = cuda_ms(lambda: mb.residual_stage(xb, wts, Ws), inner=10)
+            t_f32 = cuda_ms(lambda: mb.residual_stage(x, wts, Ws), inner=10)
+            t_p = cuda_ms(lambda: mb.residual_stage_plain(xb, wts, Ws))
+            t_u = cuda_ms(op_by_op, inner=10)
+        log(f"[time] K5 stage {Hs}x{Ws} C={C} Cm={st['Cm']} x {mpf._SLICE} "
+            f"bf16: kernel {t_k:.4f} ms ({t_f32:.4f} ms in float32), plain "
+            f"{t_p:.4f} ms, the same {st['n_ops']} ops unfused (cuDNN, "
+            f"op by op) {t_u:.4f} ms")
+        k5["ms"] += t_k * n_slices
+        k5["plain"] += t_p * n_slices
+        k5["unfused"] += t_u * n_slices
+        k5["bytes"] += 2 * 2 * C * Hs * Ws * T + 4 * sum(
+            w.numel() for w in wts) * n_slices
+        k5["ops"] += k5_ops(C, st["Cm"], Hs * Ws) * T
+    log(f"[time] K5 for the run ({n_slices} slices x {len(stages)} "
+        f"stages): kernel {k5['ms']:.3f} ms, plain {k5['plain']:.3f} ms, "
+        f"unfused stages {k5['unfused']:.3f} ms")
+    del frames
+    return dict(launches=launches, k5_err=k5_err, k5=k5, peak=peak,
+                m_ms=m_ms, d_ms=d_ms, split=split, mae_ref=mae_ref, mae_truth=mae_truth,
+                agree=agree, rms=rms, rms_crop=rms_crop)
 
 
 def check_k4(dev) -> float:
@@ -920,7 +1340,13 @@ def main() -> int:
         + evm_run["launches"]["K6 measure"]
     launches["K7"] = evm_run["launches"]["K7"]
 
-    # 7. The serving pool, fused then skin-detector ticks, counters from 0.
+    # 7. The MediaPipe detector (K5, K2), counters from 0 before its measure.
+    t0 = time.perf_counter()
+    mp_run = run_mediapipe(dev, cfg)
+    log(f"[mediapipe] phase in {time.perf_counter() - t0:.1f} s")
+    launches["K5"] = mp_run["launches"]["K5"]
+
+    # 8. The serving pool, fused then skin-detector ticks, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True)
@@ -941,14 +1367,14 @@ def main() -> int:
     if skin_k2 < 1:
         raise AssertionError("K2 never launched in the skin-detector pool")
 
-    # 8. The front-end, counters from 0.
+    # 9. The front-end, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     served = run_server(dev)
     log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
     if fused_cuda.SLOT_LAUNCHES < 1:
         raise AssertionError("K4 never launched behind the server")
 
-    # 9. Timing (CUDA events; frames resident on the card unless stated).
+    # 10. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)
@@ -1015,12 +1441,16 @@ def main() -> int:
         "K6": bound(evm_run["k6_bytes"], 170 * n6 * (H // 2) * (W // 2)),
         # K7: u8 frames and the f32 band in, u8 out; ~70 operations per
         # pixel (YIQ there and back, the bilinear taps, rounding).
-        "K7": bound(evm_run["k7_bytes"], 70 * n6 * H * W)}
+        "K7": bound(evm_run["k7_bytes"], 70 * n6 * H * W),
+        # K5: each stage's bf16 input and output and its weights per
+        # launch; the operations of k5_ops.
+        "K5": bound(mp_run["k5"]["bytes"], mp_run["k5"]["ops"])}
     for k, (b_ms, by) in bounds.items():
         log(f"[bound] {k}: {b_ms:.4f} ms ({by})")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port's smoke run imported jax")
+    for mod in ("jax", "flatbuffers"):
+        if mod in sys.modules:
+            raise AssertionError(f"the port's smoke run imported {mod}")
     ref_mods = sorted(m for m in sys.modules
                       if m == "vhr_tpu" or m.startswith("vhr_tpu."))
     if ref_mods:
@@ -1035,6 +1465,9 @@ def main() -> int:
          "pallas_roi.py:324", k3_err, k3_ms, k2_plain),
         ("fused_detect_roi_slots (K4)", "K4", "fused_slots.cu",
          "pallas_fused.py:479", k4_err, k4_ms, k4_plain),
+        ("residual_stage (K5)", "K5", "residual_stage.cu",
+         "pallas_meshblocks.py:152", mp_run["k5_err"], mp_run["k5"]["ms"],
+         mp_run["k5"]["plain"]),
         ("yiq_pyrdown (K6)", "K6", "evm_pyrdown.cu", "pallas_evm.py:142",
          evm_checks["k6_err"], evm_run["k6_ms"], evm_run["k6_plain"]),
         ("evm_reconstruct (K7)", "K7", "evm_recon.cu",

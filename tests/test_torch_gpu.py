@@ -1,5 +1,4 @@
-"""Kernels K1, K2, K3, K4, K6 and K7 against their plain PyTorch versions on
-a CUDA card.
+"""Kernels K1 to K7 against their plain PyTorch versions on a CUDA card.
 
 These tests need the card (the CUDA kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it also runs where JAX is not
@@ -12,7 +11,11 @@ Boxes, flags, counts and carries must be equal; means within
 K3's means are held equal).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
-dot product, which cuBLAS may order otherwise).
+dot product, which cuBLAS may order otherwise).  K5 in float32 within
+``1e-5 * max|y|`` (the same sums in another order, TF32 off in the plain
+version); in bfloat16 within one bf16 ulp of each value, or ``1e-5 *
+max|y|`` where that is larger (near zero the float32 rounding order alone
+decides the last bit).
 """
 
 import numpy as np
@@ -21,8 +24,12 @@ import torch
 
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
+from vhr_tpu_torch.models.mediapipe_face import default_task_path
+from vhr_tpu_torch.models.tflite import load_task_models
+from vhr_tpu_torch.models.tflite_exec import (_find_residual_stages,
+                                              fold_dequantize)
 from vhr_tpu_torch.ops import (evm_cuda, evm_recon_cuda, fused_cuda,
-                               roi_means_cuda)
+                               meshblocks_cuda, roi_means_cuda)
 from vhr_tpu_torch.ops.reduce import roi_channel_means
 
 TOL = dict(rtol=1e-6, atol=1e-5)
@@ -247,3 +254,53 @@ def test_k3_matches_k2_on_the_clip(gpu_clip):
     for x, y, z in zip(a, b, c):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
         torch.testing.assert_close(x, z, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def mesh_stages():
+    """The face-mesh graph's four residual stages with their packed
+    weights."""
+    g = fold_dequantize(load_task_models(default_task_path())[
+        "face_landmarks_detector.tflite"].graph)
+    out = []
+    for st in _find_residual_stages(g.operators, g.tensors):
+        blocks = [{k: g.tensors[t].data for k, t in b.items()}
+                  for b in st["blocks"]]
+        out.append((st, meshblocks_cuda.pack_stage_weights(
+            g.tensors[st["a0"]].data, blocks)))
+    return out
+
+
+def k5_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """K5's tolerance (module docstring) in float32 and in bfloat16."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    err = (g - w).abs()
+    if got.dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+        return
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool((err <= torch.maximum(ulp, torch.tensor(1e-5 * scale,
+                                                        device=err.device))
+                 ).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_k5_matches_plain(cuda, mesh_stages, stage, dtype):
+    """K5 at each of the mesh net's four stage shapes with the bundled
+    weights, on inputs spread like a stage's (entry maps of magnitude ~1)."""
+    st, wts = mesh_stages[stage]
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    rng = np.random.default_rng(stage)
+    x = torch.as_tensor(rng.normal(0, 1, (5, st["C"], st["H"] * st["W"]))
+                        .astype(np.float32), device=cuda).to(dtype)
+    before = meshblocks_cuda.LAUNCHES
+    got = meshblocks_cuda.residual_stage(x, wts, st["W"])
+    assert meshblocks_cuda.LAUNCHES == before + 1
+    want = meshblocks_cuda.residual_stage_plain(x, wts, st["W"])
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    k5_close(got, want)

@@ -1,6 +1,6 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its own
-copies of the JAX package's jax-free modules (configuration, filter design)
-equal the originals."""
+copies of the JAX package's jax-free modules and helpers (configuration,
+filter design, the MediaPipe nets' numpy helpers) equal the originals."""
 
 import dataclasses
 import subprocess
@@ -13,6 +13,9 @@ import torch
 
 from vhr_tpu import config as jconfig
 from vhr_tpu.dsp import design as jdesign
+from vhr_tpu.models import mediapipe_face as jmp
+from vhr_tpu.models import tflite_exec as jexec
+from vhr_tpu.ops import pallas_meshblocks as jmb
 from vhr_tpu.models.skin_detector import SkinDetectorConfig as JaxSkinConfig
 from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
@@ -20,7 +23,10 @@ import vhr_tpu_torch
 from vhr_tpu_torch import config, interop, serving
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
 from vhr_tpu_torch.dsp import design
+from vhr_tpu_torch.models import mediapipe_face as tmp
+from vhr_tpu_torch.models import tflite_exec as texec
 from vhr_tpu_torch.models.skin_detector import SkinDetectorConfig
+from vhr_tpu_torch.ops import meshblocks_cuda as tmb
 from vhr_tpu_torch.pipeline import offline
 from vhr_tpu_torch.validation import cpu_reference_green_avg
 
@@ -46,7 +52,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, check=True)
     n, has_jax, has_torch, n_ref = out.stdout.split()
-    assert int(n) >= 22
+    assert int(n) >= 26
     assert has_jax == "False" and has_torch == "True"
     assert n_ref == "0"
 
@@ -70,6 +76,67 @@ def test_evm_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.split() == ["False"]
+
+
+def test_mediapipe_modules_import_without_jax():
+    """The MediaPipe slice's modules load neither jax, nor any module of
+    ``vhr_tpu``, nor ``flatbuffers`` (the card's machine has none of them:
+    the port reads the flatbuffer with ``struct``)."""
+    code = ("import sys; import vhr_tpu_torch.models.mediapipe_face, "
+            "vhr_tpu_torch.models.tflite, vhr_tpu_torch.models.tflite_exec, "
+            "vhr_tpu_torch.ops.meshblocks_cuda, vhr_tpu_torch.interop; "
+            "print('jax' in sys.modules, 'flatbuffers' in sys.modules, "
+            "any(m == 'vhr_tpu' or m.startswith('vhr_tpu.') "
+            "for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False", "False"]
+
+
+def _stage_blocks(rng, C=8, Cm=4, n=2):
+    r = lambda *s: rng.normal(size=s).astype(np.float32)
+    return r(1, 1, C), [dict(w1=r(Cm, 1, 1, C), b1=r(Cm), a1=r(1, 1, Cm),
+                             dw=r(1, 3, 3, Cm), bdw=r(Cm), w2=r(C, 1, 1, Cm),
+                             b2=r(C), a2=r(1, 1, C)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("helper", ["resize_matrix", "anchors",
+                                    "letterbox_geometry", "pad_amount",
+                                    "np_conv", "pack_stage_weights"])
+def test_mediapipe_numpy_helpers_equal_jax(helper):
+    """The port's copies of the MediaPipe slice's numpy helpers give the
+    JAX package's values exactly."""
+    rng = np.random.default_rng(0)
+    if helper == "resize_matrix":
+        for n_src, n_dst in [(1920, 128), (1080, 72), (90, 128), (7, 7)]:
+            np.testing.assert_array_equal(tmp._resize_matrix(n_src, n_dst),
+                                          jmp._resize_matrix(n_src, n_dst))
+    elif helper == "anchors":
+        np.testing.assert_array_equal(tmp.blazeface_anchors(),
+                                      jmp.blazeface_anchors())
+    elif helper == "letterbox_geometry":
+        for H, W in [(1080, 1920), (720, 1280), (256, 320), (333, 200)]:
+            assert tmp._letterbox_geometry(H, W, 128) == \
+                jmp._letterbox_geometry(H, W, 128)
+    elif helper == "pad_amount":
+        for args in [(128, 3, 2, "SAME"), (64, 5, 2, "SAME"),
+                     (7, 2, 2, "VALID"), (16, 3, 1, "SAME")]:
+            assert texec._np_pad_amount(*args) == jexec._np_pad_amount(*args)
+    elif helper == "np_conv":
+        x = rng.normal(size=(2, 9, 7, 4)).astype(np.float32)
+        for filt, stride, pad, groups in [
+                (rng.normal(size=(6, 3, 3, 4)), (2, 2), "SAME", 1),
+                (rng.normal(size=(1, 3, 3, 4)), (1, 1), "SAME", 4),
+                (rng.normal(size=(5, 2, 2, 4)), (2, 2), "VALID", 1)]:
+            b = rng.normal(size=filt.shape[0] if groups == 1 else 4)
+            np.testing.assert_array_equal(
+                texec._np_conv(x, filt, b, stride, pad, groups),
+                jexec._np_conv(x, filt, b, stride, pad, groups))
+    else:
+        a0, blocks = _stage_blocks(rng)
+        for got, want in zip(tmb.pack_stage_weights(a0, blocks),
+                             jmb.pack_stage_weights(a0, blocks)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_skin_config_equals_jax_field_for_field():
@@ -160,7 +227,8 @@ def test_cpu_reference_equals_jax_package():
 
 @pytest.mark.parametrize("entry", ["BpmServer", "evm.measure",
                                    "extract_signals_streaming",
-                                   "measure_green_avg_file"])
+                                   "measure_green_avg_file",
+                                   "make_mediapipe_detector"])
 def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
     """Without a CUDA card an entry point refuses to start unless the
     caller passes ``device="cpu"``; it never falls back on its own."""
@@ -171,7 +239,9 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
             "extract_signals_streaming":
                 lambda **kw: offline.extract_signals_streaming(path, **kw),
             "measure_green_avg_file":
-                lambda **kw: offline.measure_green_avg_file(path, **kw)}[entry]
+                lambda **kw: offline.measure_green_avg_file(path, **kw),
+            "make_mediapipe_detector":
+                lambda **kw: tmp.make_mediapipe_detector(path, **kw)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     if entry == "BpmServer":

@@ -1,12 +1,12 @@
 """State carried across from the JAX package, given as numpy / plain data.
 
-The port's slices have no learned weights: the skin detector's thresholds
-and the live configuration are their parameters, and the tracking carries
-and the live state are their state.  These functions turn the JAX package's
-versions of them (as numpy arrays or ``dataclasses.asdict`` dicts — this
-module never imports JAX) into the port's and back, so a stream started in
-one package can continue in the other.  The serving pool's snapshots go
-through :func:`live_state_to_numpy` and :func:`live_state_from_numpy`.
+The skin detector's thresholds and the live configuration are parameters,
+the tracking carries and the live state are state, and the MediaPipe face
+nets have learned weights.  These functions turn the JAX package's versions
+of them (as numpy arrays or ``dataclasses.asdict`` dicts — this module never
+imports JAX) into the port's and back, so a stream started in one package
+can continue in the other.  The serving pool's snapshots go through
+:func:`live_state_to_numpy` and :func:`live_state_from_numpy`.
 """
 
 from __future__ import annotations
@@ -18,14 +18,20 @@ import numpy as np
 import torch
 
 from .config import HRBand, ROIConfig
+from .device import resolve_device
+from .models.mediapipe_face import MediaPipeFaceParams, default_task_path
 from .models.skin_detector import SkinDetectorConfig
+from .models.tflite import load_task_models
+from .models.tflite_exec import (_find_residual_stages, const_inputs,
+                                 fold_dequantize)
 from .ops.roi import HoldoverCarry
 from .pipeline.live import LiveConfig, LiveState
 
 __all__ = ["skin_config_from_jax", "fused_carry_from_numpy",
            "fused_carry_to_numpy", "holdover_carry_from_numpy",
            "holdover_carry_to_numpy", "live_config_from_jax",
-           "live_state_from_numpy", "live_state_to_numpy"]
+           "live_state_from_numpy", "live_state_to_numpy",
+           "face_params_from_jax"]
 
 # The JAX LiveState's leaf types, field by field.
 _LIVE_DTYPES = {"ring_raw": np.float32, "ring_filt": np.float32,
@@ -129,3 +135,42 @@ def live_state_to_numpy(state: LiveState) -> Dict[str, np.ndarray]:
     the JAX package's ``LiveState`` leaves."""
     return {k: getattr(state, k).detach().cpu().numpy().astype(t)
             for k, t in _LIVE_DTYPES.items()}
+
+
+def _net_weights(graph, leaves: Mapping, name: str, device) -> dict:
+    """One net's JAX params (numpy leaves keyed by tensor index, plus the
+    ``_fs{start}_{i}`` stage stacks when its stages are fused) -> tensors on
+    ``device``, checked against the graph's keys and shapes."""
+    graph = fold_dequantize(graph)
+    want = {str(i): tuple(graph.tensors[i].shape)
+            for i in const_inputs(graph)}
+    if any(k.startswith("_fs") for k in leaves):
+        for st in _find_residual_stages(graph.operators, graph.tensors):
+            want.update({f"_fs{st['start']}_{f_i}": None for f_i in range(9)})
+    if set(leaves) != set(want):
+        raise ValueError(f"{name} params differ: extra "
+                         f"{sorted(set(leaves) - set(want))[:8]}, missing "
+                         f"{sorted(set(want) - set(leaves))[:8]}")
+    out = {}
+    for k, v in leaves.items():
+        a = np.array(v, np.float32)
+        if want[k] is not None and a.shape != want[k]:
+            raise ValueError(f"{name} param {k} has shape {a.shape}, the "
+                             f"graph's is {want[k]}")
+        out[k] = torch.as_tensor(a, device=device)
+    return out
+
+
+def face_params_from_jax(det: Mapping, lm: Mapping,
+                         device=None) -> MediaPipeFaceParams:
+    """The JAX package's ``MediaPipeFaceParams`` leaves (``det`` and ``lm``
+    dicts of arrays) -> the port's weights for the bundled ``.task``'s
+    nets, on ``device`` (the CUDA card unless given).  Unknown or missing
+    keys raise, as do shapes that differ from the graph's."""
+    device = resolve_device(device)
+    models = load_task_models(default_task_path())
+    return MediaPipeFaceParams(
+        det=_net_weights(models["face_detector.tflite"].graph, det,
+                         "detector", device),
+        lm=_net_weights(models["face_landmarks_detector.tflite"].graph, lm,
+                        "mesh", device))
