@@ -15,8 +15,10 @@ Phases, each of which must pass (any failure exits non-zero):
    ROIs (K3 also on rows padded to a wider pitch), K1 over its knobs
    (row pooling, detection cadence, gating, multi-stream ``seq_len``) on the
    clip, K4 on 64 slots of 720p frames with random carries (fresh, tracked,
-   spent budgets) and random phases over the same knobs; integer outputs
-   must be equal, means within ``rtol=1e-6``;
+   spent budgets, a cheek ROI across a row-chunk boundary, a ROI clipped at
+   the frame's right and bottom edge) and random phases over the same
+   knobs, and with a long ROI that runs into a chunk the gate leaves out;
+   integer outputs must be equal, means within ``rtol=1e-6`` (K4's equal);
 4. the offline green-channel measure at the flagship configuration (30 s
    window / 10 s acquisition) in both forms — fused (K1,
    ``detect_row_pool=8``) and detect-then-reduce with the K2 ROI kernel:
@@ -82,10 +84,15 @@ Phases, each of which must pass (any failure exits non-zero):
 9. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
-   of the truth; then 10 one-frame round trips each;
+   of the truth; then 10 one-frame round trips each.  K4 is then launched
+   twice more on the fused pool's last frames and state and must give the
+   same bits both times (each launch leaves its accumulators clean);
 10. time each pool tick (device time, and wall time with the host-to-card
    upload and the fetch) and each kernel against its plain version, with
-   CUDA events (median of 3 after a warm-up); both offline forms are timed
+   CUDA events (median of 3 after a warm-up; K4 with the card kept busy
+   while the host enqueues its calls, also with row pooling and with
+   gating, and the kernels ``torch.profiler`` sees in 20 calls of
+   each, which must be one a call); both offline forms are timed
    right after phase 4, the fused one again at the end, and the EVM path
    right after phase 5.
 
@@ -256,9 +263,14 @@ def compare(name: str, got, want) -> float:
     return err
 
 
-def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
+def cuda_ms(fn, reps: int = 3, inner: int = 1,
+            queue_ahead: bool = False) -> float:
     """Median milliseconds per call over ``reps`` timed runs of ``inner``
-    calls each, after one warm-up call, from CUDA events."""
+    calls each, after one warm-up call, from CUDA events.
+
+    With ``queue_ahead`` the card first spins for some 10 ms while the host
+    enqueues the calls, so that the events time the card alone even where
+    the host takes longer to enqueue a call than the card to run it."""
     import torch
 
     fn()
@@ -266,6 +278,8 @@ def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -616,13 +630,14 @@ def run_streaming(dev, frames, cfg) -> dict:
                                   torch.as_tensor(f["valid"])).numpy()
     ref = cpu_reference_green_avg(green, FPS, cfg.window_seconds,
                                   cfg.acquisition_seconds, cfg.band)
-    expect = T - cfg.acquisition_len(FPS)
+    expect = T - cfg.acquisition_len(FPS) + 1
     idx = [i for i in ref if valid[i]]
     mae = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
            if idx else math.inf)
     log(f"[stream] measure_green_avg_file (fused, K1 x "
         f"{fused_cuda.LAUNCHES}): {T / wall:.1f} frames/s from the file; "
-        f"valid {int(valid.sum())}/{expect} post-acquisition frames; BPM "
+        f"valid {int(valid.sum())}/{expect} frames from the end of the "
+        f"acquisition; BPM "
         f"MAE vs numpy reference {mae:.4f} over {len(idx)} frames; vs "
         f"{TRUTH_BPM:g} truth {float(abs(bpm[valid] - TRUTH_BPM).mean()):.4f}")
     if valid.sum() < 0.95 * expect or mae > 0.5 \
@@ -870,7 +885,7 @@ def run_mediapipe(dev, cfg) -> dict:
     ref = cpu_reference_green_avg(green.cpu().numpy(), FPS,
                                   cfg.window_seconds,
                                   cfg.acquisition_seconds, cfg.band)
-    expect = T - cfg.acquisition_len(FPS)
+    expect = T - cfg.acquisition_len(FPS) + 1
     idx = [i for i in ref if valid[i]]
     mae_ref = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
                if idx else math.inf)
@@ -878,7 +893,8 @@ def run_mediapipe(dev, cfg) -> dict:
     tv = trace.valid.cpu()
     iou = box_iou(trace.boxes.cpu().double()[tv], ell[tv])
     log(f"[mediapipe] measure: detector valid {int(tv.sum())}/{T} frames; "
-        f"valid {int(valid.sum())}/{expect} post-acquisition frames; BPM "
+        f"valid {int(valid.sum())}/{expect} frames from the end of the "
+        f"acquisition; BPM "
         f"MAE vs numpy reference {mae_ref:.4f} over {len(idx)} frames; vs "
         f"{TRUTH_BPM:g} BPM truth {mae_truth:.4f}; landmark box IoU with "
         f"the skin ellipse's box min {float(iou.min()):.3f} mean "
@@ -985,9 +1001,29 @@ def run_mediapipe(dev, cfg) -> dict:
                 agree=agree, rms=rms, rms_crop=rms_crop)
 
 
-def check_k4(dev) -> float:
-    """K4 against its plain version at 64 slots of 720p; max |err|."""
+def same_bits(name: str, got, want) -> None:
+    """Every tensor of ``got`` equal to its counterpart, floats included."""
     import torch
+
+    for i, (g, w_) in enumerate(zip(got, want)):
+        if not torch.equal(g, w_):
+            bad = (g != w_).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: output {i} differs at {bad}")
+
+
+def check_k4(dev) -> float:
+    """K4 against its plain version at 64 slots of 720p; max |err|.
+
+    The carries: fresh slots, spent budgets, tracked faces, random boxes, a
+    tracked box whose cheek ROI straddles the chunk boundary at row 256
+    while ``gate_margin=0.5`` leaves the last chunk out, and a box that
+    runs over the frame's right and bottom edge, so that its ROI is
+    clipped.  With ``ROIConfig(cheek_bottom=2.0)`` and ``gate_margin=0.1``
+    the straddling box's ROI runs on into a chunk that the gate leaves
+    out.  Every output must equal the plain version's, the means too: both
+    sum exactly and divide once in float32."""
+    import torch
+    from vhr_tpu_torch.config import ROIConfig
     from vhr_tpu_torch.ops import fused_cuda
 
     subj = Subjects(dev, SLOTS, PH, PW, SEED + 2)
@@ -998,6 +1034,9 @@ def check_k4(dev) -> float:
     def r(lo, hi):
         return torch.randint(lo, hi, (SLOTS,), generator=gen, device=dev)
 
+    def box(*v):
+        return torch.tensor(v, device=dev, dtype=torch.int32)
+
     x1, y1 = r(0, PW // 2), r(0, PH // 2)
     carry = torch.stack([x1, y1, x1 + r(PW // 16, PW // 2),
                          y1 + r(PH // 16, PH // 2), r(0, 16), r(0, 2)],
@@ -1006,26 +1045,32 @@ def check_k4(dev) -> float:
     carry[:q] = 0                                       # fresh slots
     carry[q:2 * q, 4] = 0                               # spent budgets
     carry[q:3 * q, 5] = 1
-    carry[2 * q:3 * q, :4] = torch.tensor(              # tracked faces
-        [int(0.34 * PW), int(0.19 * PH), int(0.66 * PW), int(0.71 * PH)],
-        device=dev, dtype=torch.int32)
+    carry[2 * q:3 * q, :4] = box(                       # tracked faces
+        int(0.34 * PW), int(0.19 * PH), int(0.66 * PW), int(0.71 * PH))
+    # ROI rows 220-295 across the chunk boundary at 256 (row_block=128).
+    carry[3 * q:4 * q] = box(400, 100, 800, 400, 15, 1)
+    # ROI columns 975-1325 and rows 660-760: clipped at 1280 and 720.
+    carry[4 * q:5 * q] = box(900, 500, 1400, 900, 15, 1)
     phase = r(0, 1000).to(torch.int32)
+    sets = [dict(detect_row_pool=pool, detect_every=every, gate_margin=gate)
+            for pool in (1, 8) for every in (1, 4) for gate in (None, 0.5)]
+    sets += [dict(detect_row_pool=pool, gate_margin=0.1,
+                  roi=ROIConfig(cheek_bottom=2.0)) for pool in (1, 8)]
     err = 0.0
-    for pool in (1, 8):
-        for every in (1, 4):
-            for gate in (None, 0.5):
-                kw = dict(detect_row_pool=pool, detect_every=every,
-                          gate_margin=gate)
-                got, got_c = fused_cuda.fused_detect_roi_slots(
-                    frames, carry, phase, **kw)
-                want, want_c = fused_cuda.fused_detect_roi_slots_plain(
-                    frames, carry, phase, **kw)
-                torch.cuda.synchronize()
-                err = max(err, compare(f"K4 {kw}", tuple(got) + (got_c,),
-                                       tuple(want) + (want_c,)))
-                log(f"[check] K4 == plain {kw}: det_valid "
-                    f"{int(got.det_valid.sum())}/{SLOTS}, roi_valid "
-                    f"{int(got.roi_valid.sum())}/{SLOTS}")
+    for kw in sets:
+        got, got_c = fused_cuda.fused_detect_roi_slots(
+            frames, carry, phase, **kw)
+        want, want_c = fused_cuda.fused_detect_roi_slots_plain(
+            frames, carry, phase, **kw)
+        torch.cuda.synchronize()
+        same_bits(f"K4 {kw}", tuple(got) + (got_c,), tuple(want) + (want_c,))
+        err = max(err, compare(f"K4 {kw}", tuple(got) + (got_c,),
+                               tuple(want) + (want_c,)))
+        shown = {k: (v if k != "roi" else "cheek_bottom=2.0")
+                 for k, v in kw.items()}
+        log(f"[check] K4 == plain {shown}: det_valid "
+            f"{int(got.det_valid.sum())}/{SLOTS}, roi_valid "
+            f"{int(got.roi_valid.sum())}/{SLOTS}")
     return err
 
 
@@ -1301,7 +1346,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the offline path never launched: "
                              f"{launches}")
     for form, (green, bpm, valid) in results.items():
-        n_valid, expect = int(valid.sum()), T - acq
+        n_valid, expect = int(valid.sum()), T - acq + 1
         if n_valid < 0.95 * expect:
             raise AssertionError(f"{form}: {n_valid} valid of {expect}")
         if not all(map(math.isfinite, bpm.tolist())):
@@ -1312,8 +1357,9 @@ def main() -> int:
         idx = [i for i in ref if valid[i]]
         mae_ref = sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
         mae_truth = float(abs(bpm[valid] - TRUTH_BPM).mean())
-        log(f"[main] {form}: valid {n_valid}/{expect} post-acquisition "
-            f"frames; BPM MAE vs numpy reference {mae_ref:.4f} over "
+        log(f"[main] {form}: valid {n_valid}/{expect} frames from the end "
+            f"of the acquisition; BPM MAE vs numpy reference {mae_ref:.4f} "
+            f"over "
             f"{len(idx)} frames; vs {TRUTH_BPM:g} BPM truth {mae_truth:.4f}")
         if len(idx) < 0.95 * n_valid or mae_ref > 0.5:
             raise AssertionError(f"{form}: MAE vs reference {mae_ref} "
@@ -1409,8 +1455,72 @@ def main() -> int:
     state = fused_pool["pool"]._state
     carry = torch.cat([state.last_box, state.hold_budget[:, None],
                        state.has_last.to(torch.int32)[:, None]], 1)
-    k4_ms = cuda_ms(lambda: fused_cuda.fused_detect_roi_slots(
-        slot_frames, carry, state.frame_idx), inner=10)
+    # Two more K4 launches on the pool's last frames and state must give
+    # the same bits: the last block of each slot left the accumulators
+    # clean.
+    first = fused_cuda.fused_detect_roi_slots(slot_frames, carry,
+                                              state.frame_idx)
+    again = fused_cuda.fused_detect_roi_slots(slot_frames, carry,
+                                              state.frame_idx)
+    torch.cuda.synchronize()
+    same_bits("K4 called twice", tuple(again[0]) + (again[1],),
+              tuple(first[0]) + (first[1],))
+    log("[check] K4 twice on the pool's last frames and state: same bits")
+    k4_cases = [("default", {}),
+                ("detect_row_pool=8", dict(detect_row_pool=8)),
+                ("gate_margin=0.5", dict(gate_margin=0.5))]
+
+    def k4_call(kw):
+        return fused_cuda.fused_detect_roi_slots(
+            slot_frames, carry, state.frame_idx, **kw)
+
+    # The host takes about as long to enqueue a K4 call as the card to run
+    # it, so K4 is timed with the queue filled ahead, and for comparison
+    # paced by the host as the other kernels are.
+    k4_times = {name: cuda_ms(lambda kw=kw: k4_call(kw), inner=10,
+                              queue_ahead=True) for name, kw in k4_cases}
+    k4_paced = {name: cuda_ms(lambda kw=kw: k4_call(kw), inner=10)
+                for name, kw in k4_cases}
+    log("[time] K4 a call by events, the queue filled ahead: " + ", ".join(
+        f"{name} {t_ms:.4f} ms" for name, t_ms in k4_times.items())
+        + "; paced by the host: " + ", ".join(
+            f"{name} {t_ms:.4f} ms" for name, t_ms in k4_paced.items()))
+
+    # The kernels torch.profiler sees in 20 calls of each case, in one
+    # trace.  The tracer drops the kernels launched while it starts up (a
+    # short trace can come back empty), so 40 calls with detect_row_pool=2,
+    # whose kernel has a name of its own, go first.  A call that took more
+    # than one launch would show as a second kernel name or as more
+    # kernels than calls: that fails; fewer kernels than calls are the
+    # tracer's and are logged.
+    def k4_traced():
+        torch.cuda.synchronize()
+        for _ in range(40):
+            k4_call(dict(detect_row_pool=2))
+        torch.cuda.synchronize()
+        for _, kw in k4_cases:
+            for _ in range(20):
+                k4_call(kw)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    busy, top = device_profile(k4_traced)
+    calls = {"slot_tick_kernel<1>": 40, "slot_tick_kernel<8>": 20,
+             "slot_tick_kernel<2>": 40}
+    seen = {}
+    for k, ms_, n in top:
+        tag = next((t for t in calls if t in k), None)
+        if tag is None or n > calls[tag]:
+            raise AssertionError(f"K4: one kernel a call expected, the "
+                                 f"profiler saw {top}")
+        seen[tag] = (ms_ / n, n)
+    log("[time] K4 under the profiler, one kernel a call: " + "; ".join(
+        f"{tag} {ms_:.4f} ms a launch ({n} of {calls[tag]} launches "
+        f"traced)" for tag, (ms_, n) in sorted(seen.items()))
+        + " (<1>: default and gated, <8>: detect_row_pool=8, <2>: the "
+        "warm-up)" if seen else
+        "[time] K4 under the profiler: no device work traced")
+    k4_ms = k4_times["default"]
     k4_plain = cuda_ms(lambda: fused_cuda.fused_detect_roi_slots_plain(
         slot_frames, carry, state.frame_idx))
     for k, a, b, n in [("K1", k1_ms, k1_plain, T), ("K2", k2_ms, k2_plain, T),

@@ -8,7 +8,7 @@ installed; there, skip the JAX test configuration with
 
 Boxes, flags, counts and carries must be equal; means within
 ``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32;
-K3's means are held equal).
+K3's and K4's means are held equal).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
 dot product, which cuBLAS may order otherwise).  K5 in float32 within
@@ -24,6 +24,7 @@ import torch
 
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
+from vhr_tpu_torch.config import ROIConfig
 from vhr_tpu_torch.models.mediapipe_face import default_task_path
 from vhr_tpu_torch.models.tflite import load_task_models
 from vhr_tpu_torch.models.tflite_exec import (_find_residual_stages,
@@ -106,36 +107,85 @@ def test_k2_matches_plain(gpu_clip, flat):
     _same(got, want)
 
 
+# A box whose cheek ROI (with ``_LONG_ROI``) runs from chunk 0 down into a
+# row chunk that the gate leaves out, and one whose ROI is clipped at the
+# frame's right and bottom edge (the clip is 104 x 128).
+_LONG_ROI = ROIConfig(cheek_bottom=3.5)
+_GATED_BOX = [40, 8, 90, 30, 15, 1]
+_EDGE_BOX = [100, 70, 140, 130, 15, 1]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw", [
     dict(row_block=64),
     dict(row_block=32, detect_every=4, gate_margin=0.5, rescan_every=3),
     dict(row_block=8, detect_row_pool=8, gate_margin=0.2, detect_every=3),
+    dict(row_block=64, slots=1),
+    dict(row_block=128),                       # larger than H: one chunk
+    dict(row_block=64, detect_row_pool=8),     # clamped last chunk, q0 > 0
+    dict(row_block=64, detect_row_pool=8, gate_margin=0.1),
+    dict(row_block=32, gate_margin=0.1, rescan_every=7, roi=_LONG_ROI,
+         box=_GATED_BOX),
+    dict(row_block=32, detect_every=2, roi=_LONG_ROI, box=_GATED_BOX),
+    dict(row_block=64, box=_EDGE_BOX),
+    dict(row_block=16, detect_row_pool=4, gate_margin=0.3, box=_EDGE_BOX),
 ])
 def test_k4_matches_plain(gpu_clip, kw):
     """Slots from random frames of the clip, with random carries (fresh,
-    tracked and spent-budget rows) and random phases."""
+    tracked and spent-budget rows) and random phases.  ``box`` puts a
+    tracked carry row on slots 3 to 8, at phases 1 to 6.  Every output must
+    equal the plain version's (the means are exact sums divided once), and
+    a second launch on the same inputs must give the same bits: the first
+    left the kernel's accumulators clean."""
     frames, boxes = gpu_clip
-    S = 12
+    kw = dict(kw)
+    S, box = kw.pop("slots", 12), kw.pop("box", None)
     rng = np.random.default_rng(len(kw))
     pick = rng.integers(0, frames.shape[0], S)
     x1, y1 = rng.integers(0, 64, S), rng.integers(0, 52, S)
     carry = np.stack([x1, y1, x1 + rng.integers(10, 64, S),
                       y1 + rng.integers(10, 52, S), rng.integers(0, 16, S),
                       rng.integers(0, 2, S)], 1).astype(np.int32)
+    phase = rng.integers(0, 100, S).astype(np.int32)
     carry[0] = 0
-    carry[1, 4:] = [0, 1]
-    carry[2] = boxes[pick[2]].tolist() + [15, 1]
+    if S > 2:
+        carry[1, 4:] = [0, 1]
+        carry[2] = boxes[pick[2]].tolist() + [15, 1]
+    if box is not None:
+        carry[3:9] = box
+        phase[3:9] = np.arange(1, 7)
     slots = frames[torch.as_tensor(pick).cuda()].contiguous()
     carry = torch.as_tensor(carry).cuda()
-    phase = torch.as_tensor(rng.integers(0, 100, S).astype(np.int32)).cuda()
+    phase = torch.as_tensor(phase).cuda()
     before = fused_cuda.SLOT_LAUNCHES
     got, got_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase, **kw)
-    assert fused_cuda.SLOT_LAUNCHES == before + 1
+    again, again_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase,
+                                                       **kw)
+    assert fused_cuda.SLOT_LAUNCHES == before + 2
     want, want_c = fused_cuda.fused_detect_roi_slots_plain(slots, carry,
                                                            phase, **kw)
     torch.cuda.synchronize()
-    _same(tuple(got) + (got_c,), tuple(want) + (want_c,))
+    for g, a, w in zip(tuple(got) + (got_c,), tuple(again) + (again_c,),
+                       tuple(want) + (want_c,)):
+        assert torch.equal(g, w)
+        assert torch.equal(a, g)
+
+
+@pytest.mark.gpu
+def test_k4_takes_any_size_after_another(gpu_clip):
+    """One scratch serves every slot count and frame size in turn."""
+    frames = gpu_clip[0]
+    for S, h in [(5, 104), (2, 64), (9, 104)]:
+        slots = frames[:S, :h].contiguous()
+        carry = torch.zeros((S, 6), dtype=torch.int32, device=slots.device)
+        phase = torch.zeros((S,), dtype=torch.int32, device=slots.device)
+        got, got_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase,
+                                                       row_block=32)
+        want, want_c = fused_cuda.fused_detect_roi_slots_plain(
+            slots, carry, phase, row_block=32)
+        torch.cuda.synchronize()
+        for g, w in zip(tuple(got) + (got_c,), tuple(want) + (want_c,)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -26,11 +26,13 @@ import pytest
 import torch
 
 from vhr_tpu import serving as jserving
+from vhr_tpu.config import ROIConfig as JROIConfig
 from vhr_tpu.ops import pallas_fused as jfused
 from vhr_tpu.pipeline import live as jlive
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch import interop, serving
+from vhr_tpu_torch.config import ROIConfig
 from vhr_tpu_torch.ops import fused_cuda
 from vhr_tpu_torch.pipeline import live
 
@@ -118,6 +120,65 @@ def test_k4_plain_matches_pallas(kw):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
+
+
+# A box whose cheek ROI, with cheek_bottom=3.5, runs from row chunk 0 down
+# into a chunk that the gate leaves out, and one over the right and bottom
+# edge of the 104 x 128 frame, whose ROI is clipped there (its y1 >= 0).
+_GATED_BOX = [40, 8, 90, 30, 15, 1]
+_EDGE_BOX = [100, 70, 140, 130, 15, 1]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(row_block=64, slots=1),
+    dict(row_block=128),                       # larger than H: one chunk
+    dict(row_block=64, detect_row_pool=8),     # clamped last chunk, q0 > 0
+    dict(row_block=32, gate_margin=0.1, rescan_every=7, cheek_bottom=3.5,
+         box=_GATED_BOX),
+    dict(row_block=32, detect_every=2, cheek_bottom=3.5, box=_GATED_BOX),
+    dict(row_block=64, box=_EDGE_BOX),
+    dict(row_block=16, detect_row_pool=4, gate_margin=0.3, box=_EDGE_BOX),
+], ids=["one-slot", "one-chunk", "clamped-chunk-pool8", "roi-in-gated-chunk",
+        "roi-off-cadence", "roi-clipped", "roi-clipped-pool4-gated"])
+def test_k4_plain_matches_pallas_geometries(kw):
+    """The geometries K4's tile layout could get wrong on the card, where
+    the plain version is its yardstick: the plain version against the
+    Pallas kernel.  ``box`` puts a tracked carry row on slots 3 to 8, at
+    phases 1 to 6 (on and off the cadences)."""
+    kw = dict(kw)
+    S, box = kw.pop("slots", 10), kw.pop("box", None)
+    cheek_bottom = kw.pop("cheek_bottom", None)
+    jkw, tkw = dict(kw), dict(kw)
+    if cheek_bottom is not None:
+        jkw["roi"] = JROIConfig(cheek_bottom=cheek_bottom)
+        tkw["roi"] = ROIConfig(cheek_bottom=cheek_bottom)
+    v = synthesize(SynthSpec(duration_s=1.0, height=104, width=128,
+                             bpm=80.0, motion_amplitude=1.0, fps=10.0))
+    rng = np.random.default_rng(S + len(kw))
+    frames = v.frames[rng.integers(0, len(v.frames), S)]
+    x1, y1 = rng.integers(0, 64, S), rng.integers(0, 52, S)
+    carry = np.stack([x1, y1, x1 + rng.integers(10, 64, S),
+                      y1 + rng.integers(10, 52, S), rng.integers(0, 16, S),
+                      rng.integers(0, 2, S)], 1).astype(np.int32)
+    phase = rng.integers(0, 100, S).astype(np.int32)
+    carry[0] = v.face_boxes[0].tolist() + [15, 1]
+    if box is not None:
+        carry[3:9] = box
+        phase[3:9] = np.arange(1, 7)
+    ref, ref_c = jfused.fused_detect_roi_slots(
+        jnp.asarray(frames), jnp.asarray(carry), jnp.asarray(phase),
+        interpret=True, **jkw)
+    got, got_c = fused_cuda.fused_detect_roi_slots(
+        torch.as_tensor(frames), torch.as_tensor(carry),
+        torch.as_tensor(phase), **tkw)
+    np.testing.assert_allclose(got.means.numpy(), np.asarray(ref.means),
+                               **MEANS_TOL)
+    for f in ("count", "boxes", "det_valid", "roi_valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
+    if box is not None:
+        assert got.roi_valid[3:9].all() and (got.count[3:9] > 0).all()
 
 
 @pytest.mark.parametrize("use_fused,detect_every", [(True, 3), (False, 1),

@@ -369,6 +369,22 @@ def fused_detect_roi_slots_plain(frames: torch.Tensor, carry: torch.Tensor,
     return res, torch.stack([p[1] for p in parts])
 
 
+# K4's accumulators, one zero-filled int32 tensor per (device, stream).  Every
+# launch leaves them zero again, so any slot count and frame size can share
+# a tensor that is long enough; two launches on different streams must not.
+_SLOT_SCRATCH: dict = {}
+
+
+def _slot_scratch(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           stream)
+    buf = _SLOT_SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SLOT_SCRATCH[key] = torch.zeros(n, dtype=torch.int32,
+                                               device=dev)
+    return buf
+
+
 def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
                            phase: torch.Tensor,
                            det: SkinDetectorConfig = SkinDetectorConfig(),
@@ -408,33 +424,36 @@ def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
         raise TypeError(f"K4 takes uint8 frames, got {frames.dtype}")
     if not frames.is_contiguous():
         raise ValueError("K4 needs contiguous frames")
+    if frames.data_ptr() % 16:
+        raise ValueError("K4 needs 16-byte aligned frames")
     S, dev = g.T, frames.device
     carry = carry.to(device=dev, dtype=torch.int32).contiguous()
     phase = phase.to(device=dev, dtype=torch.int32).contiguous()
 
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    colcnt, stats = i32(S, g.n_chunks, g.W), i32(S, g.n_chunks, 3)
-    rois, boxes, flags, carry_out = i32(S, 4), i32(S, 4), i32(S, 2), \
-        i32(S, 6)
-    means = torch.empty((S, 3), dtype=torch.float32, device=dev)
-    count = torch.empty((S,), dtype=torch.float32, device=dev)
+    # One allocation for the outputs (the pool keeps them across ticks, so
+    # they are fresh each call): carry_out (S, 6) and boxes (S, 4) int32,
+    # means (S, 3) and count (S,) float32, det_valid and roi_valid (S,) bool.
+    out = torch.empty((S * 58,), dtype=torch.uint8, device=dev)
+    carry_out = out[:S * 24].view(torch.int32).view(S, 6)
+    boxes = out[S * 24:S * 40].view(torch.int32).view(S, 4)
+    means = out[S * 40:S * 52].view(torch.float32).view(S, 3)
+    count = out[S * 52:S * 56].view(torch.float32)
+    valid = out[S * 56:].view(torch.bool).view(2, S)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _slot_scratch(dev, stream, S * (7 + g.W // 16 + g.H))
     global SLOT_LAUNCHES
     SLOT_LAUNCHES += 1
     err = lib.vhr_fused_detect_roi_slots(
-        frames.data_ptr(), S, g.H, g.W, g.rb, g.n_chunks, detect_row_pool,
-        detect_every, int(gate_margin is not None),
+        frames.data_ptr(), S, g.H, g.W, g.rb, detect_row_pool, detect_every,
+        int(gate_margin is not None),
         0.0 if gate_margin is None else gate_margin, rescan_every,
         float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
         det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
         roi.landmark_hold_frames, carry.data_ptr(), phase.data_ptr(),
-        carry_out.data_ptr(), colcnt.data_ptr(), stats.data_ptr(),
-        rois.data_ptr(), boxes.data_ptr(), flags.data_ptr(),
-        means.data_ptr(), count.data_ptr(), stream)
+        carry_out.data_ptr(), scratch.data_ptr(), boxes.data_ptr(),
+        valid.data_ptr(), means.data_ptr(), count.data_ptr(), stream)
     _build.check(err, "fused_detect_roi_slots")
     res = FusedResult(means=means, count=count, boxes=boxes,
-                      det_valid=flags[:, 0] > 0, roi_valid=flags[:, 1] > 0)
+                      det_valid=valid[0], roi_valid=valid[1])
     return res, carry_out
