@@ -54,7 +54,8 @@ Phases, each of which must pass (any failure exits non-zero):
    ``tests/test_mediapipe_face.py`` drawn 4.2x its size with cv2, swaying
    3 px, a 72 BPM green pulse on its skin ellipse and 0-7 u8 noise, made on
    the card.  K5 against its plain version at the mesh net's four stage
-   shapes with the bundled weights, B=64, float32 (within 1e-5 of max|y|)
+   shapes with the bundled weights, B=64, float32 (within 1e-5 of max|y|:
+   its 1x1 convs keep about 22 bits of each product in three TF32 passes)
    and bfloat16 (one bf16 ulp, or 1e-5 of max|y| near zero); the float32
    executor, unfused and with its stages on K5, against the numpy oracle on
    a letterboxed frame and a face crop (the JAX package's bounds, 2e-5 and
@@ -105,7 +106,10 @@ and its plain version's, and ``bound_ms``, the least time the card could
 take for the same work: the larger of the bytes it must move (inputs read
 once, outputs written once; for the ROI kernels the ROI bytes of this run's
 boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
-CUDA cores).  No single PyTorch call computes any of these functions, so
+CUDA cores; K5's two 1x1 convs, which run on the tensor cores in three TF32
+passes, count once over 495 TFLOP/s, which leaves K5 bound by its bytes).
+K5's times, like K4's, are taken with the card's queue filled ahead.  No
+single PyTorch call computes any of these functions, so
 ``library_ms`` is null (a K5 stage is 25 ops; their unfused time is logged
 beside it).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card the script exits non-zero before printing
@@ -160,8 +164,9 @@ EXEC_TOL = {"face_detector.tflite": 2e-5,            # the JAX package's
 MP_RMS_PX = 1.5
 MP_IOU_MIN = 0.5
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
-# bytes/s and float32 operations/s on the CUDA cores.
-HBM_BPS, F32_OPS = 3.35e12, 67e12
+# bytes/s, float32 operations/s on the CUDA cores, and dense TF32
+# operations/s on the tensor cores.
+HBM_BPS, F32_OPS, TF32_OPS = 3.35e12, 67e12, 495e12
 
 
 def log(msg: str) -> None:
@@ -336,9 +341,12 @@ def device_profile(fn, top: int = 8):
     return busy / 1e3, [(k, ms, n) for k, (ms, n) in ranked]
 
 
-def bound(nbytes: float, ops: float):
-    """(least milliseconds for the work on the card, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_OPS
+def bound(nbytes: float, ops: float, tensor_ops: float = 0.0):
+    """(least milliseconds for the work on the card, what bounds it):
+    ``tensor_ops`` of the ``ops`` run on the tensor cores in TF32, the rest
+    in float32 on the CUDA cores."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max((ops - tensor_ops) / F32_OPS, tensor_ops / TF32_OPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -719,12 +727,46 @@ def box_iou(a, b):
     return inter / (area(a) + area(b) - inter)
 
 
-def k5_ops(C: int, Cm: int, S: int, n_blocks: int = 4) -> int:
-    """Operations of one residual stage on one frame: per pixel and block
-    4*C*Cm (the two 1x1 convs, a multiply and an add each) + 18*Cm (the
-    3x3 depthwise conv) + 3*Cm (bias, PReLU) + 4*C (bias, residual add,
-    PReLU); 2*C per pixel for the entry PReLU."""
-    return S * (n_blocks * (4 * C * Cm + 21 * Cm + 4 * C) + 2 * C)
+def k5_ops(C: int, Cm: int, S: int, n_blocks: int = 4):
+    """Operations of one residual stage on one frame, (all of them, those
+    of the two 1x1 convs, which K5 does on the tensor cores): per pixel and
+    block 4*C*Cm (the two 1x1 convs, a multiply and an add each; the
+    algorithm's, not the three TF32 passes') + 18*Cm (the 3x3 depthwise
+    conv) + 3*Cm (bias, PReLU) + 4*C (bias, residual add, PReLU); 2*C per
+    pixel for the entry PReLU."""
+    convs = S * n_blocks * 4 * C * Cm
+    return convs + S * (n_blocks * (21 * Cm + 4 * C) + 2 * C), convs
+
+
+def check_k5(x, wts, w_row: int):
+    """K5 on ``x`` against its plain version: float32 within ``K5_F32_TOL``
+    of max|y|, bfloat16 within one bf16 ulp of each value (or that bound
+    where it is larger).  Returns (max |err|, max|y|); raises when the
+    kernel's result has another dtype or shape or lies outside the bound,
+    naming the first element that does."""
+    import torch
+    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+
+    got = mb.residual_stage(x, wts, w_row)
+    want = mb.residual_stage_plain(x, wts, w_row)
+    torch.cuda.synchronize()
+    g, w_ = got.float(), want.float()
+    err = (g - w_).abs()
+    scale = float(w_.abs().max())
+    tol = torch.full_like(err, K5_F32_TOL * scale)
+    if x.dtype != torch.float32:
+        big = torch.maximum(g.abs(), w_.abs()).clamp_min(1e-30)
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(big)) - 7))
+    bad = (~(err <= tol)).nonzero()
+    if got.dtype != x.dtype or got.shape != x.shape or len(bad):
+        where = tuple(bad[0].tolist()) if len(bad) else None
+        raise AssertionError(
+            f"K5 {tuple(x.shape)} w_row={w_row} {x.dtype}: max |err| "
+            f"{float(err.max())}, max|y| {scale}, {len(bad)} values outside "
+            f"the bound, the first at {where}: "
+            f"{float(g[where]) if where else None} against "
+            f"{float(w_[where]) if where else None}")
+    return float(err.max()), scale
 
 
 def detector_split(params, det_apply, lm_fused, lm_plain, frames) -> dict:
@@ -817,26 +859,11 @@ def run_mediapipe(dev, cfg) -> dict:
         k5_inputs.append(x)
         for dtype in (torch.float32, bf16):
             xi = x.to(dtype)
-            got = mb.residual_stage(xi, wts, Ws)
-            want = mb.residual_stage_plain(xi, wts, Ws)
-            torch.cuda.synchronize()
-            g, w_ = got.float(), want.float()
-            err = (g - w_).abs()
-            scale = float(w_.abs().max())
-            if dtype == torch.float32:
-                ok = float(err.max()) <= K5_F32_TOL * scale
-            else:
-                big = torch.maximum(g.abs(), w_.abs()).clamp_min(1e-30)
-                ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
-                ok = bool((err <= ulp.clamp_min(K5_F32_TOL * scale)).all())
-            if got.dtype != dtype or got.shape != xi.shape or not ok:
-                raise AssertionError(f"K5 {Hs}x{Ws} C={C} {dtype}: max "
-                                     f"|err| {float(err.max())}, max|y| "
-                                     f"{scale}")
-            k5_err = max(k5_err, float(err.max()))
+            err, scale = check_k5(xi, wts, Ws)
+            k5_err = max(k5_err, err)
             log(f"[check] K5 == plain at {Hs}x{Ws} C={C} Cm={st['Cm']} x "
                 f"{mpf._SLICE} {str(dtype)[6:]}: max |err| "
-                f"{float(err.max()):.3g} (max|y| {scale:.3g})")
+                f"{err:.3g} (max|y| {scale:.3g})")
 
     # The executors (float32, unfused and fused) against the numpy oracle
     # on one frame of each net: the clip's letterboxed frame and face crop.
@@ -963,7 +990,8 @@ def run_mediapipe(dev, cfg) -> dict:
     log(f"[time] MediaPipe detector at {W}x{H} x {T}, step by step (ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     n_slices = -(-T // mpf._SLICE)
-    k5 = {"ms": 0.0, "plain": 0.0, "unfused": 0.0, "bytes": 0.0, "ops": 0.0}
+    k5 = {"ms": 0.0, "plain": 0.0, "unfused": 0.0, "bytes": 0.0, "ops": 0.0,
+          "conv_ops": 0.0}
     for (st, wts), x in zip(stages, k5_inputs):
         C, Hs, Ws = st["C"], st["H"], st["W"]
         xb = x.to(bf16)
@@ -978,12 +1006,17 @@ def run_mediapipe(dev, cfg) -> dict:
             return env[st["out_tensor"]]
 
         with torch.no_grad():
-            t_k = cuda_ms(lambda: mb.residual_stage(xb, wts, Ws), inner=10)
-            t_f32 = cuda_ms(lambda: mb.residual_stage(x, wts, Ws), inner=10)
+            t_k = cuda_ms(lambda: mb.residual_stage(xb, wts, Ws), inner=20,
+                          queue_ahead=True)
+            t_f32 = cuda_ms(lambda: mb.residual_stage(x, wts, Ws), inner=20,
+                            queue_ahead=True)
+            t_host = cuda_ms(lambda: mb.residual_stage(xb, wts, Ws),
+                             inner=20)
             t_p = cuda_ms(lambda: mb.residual_stage_plain(xb, wts, Ws))
             t_u = cuda_ms(op_by_op, inner=10)
         log(f"[time] K5 stage {Hs}x{Ws} C={C} Cm={st['Cm']} x {mpf._SLICE} "
-            f"bf16: kernel {t_k:.4f} ms ({t_f32:.4f} ms in float32), plain "
+            f"bf16: kernel {t_k:.4f} ms ({t_f32:.4f} ms in float32; "
+            f"{t_host:.4f} ms paced by the host), plain "
             f"{t_p:.4f} ms, the same {st['n_ops']} ops unfused (cuDNN, "
             f"op by op) {t_u:.4f} ms")
         k5["ms"] += t_k * n_slices
@@ -991,7 +1024,9 @@ def run_mediapipe(dev, cfg) -> dict:
         k5["unfused"] += t_u * n_slices
         k5["bytes"] += 2 * 2 * C * Hs * Ws * T + 4 * sum(
             w.numel() for w in wts) * n_slices
-        k5["ops"] += k5_ops(C, st["Cm"], Hs * Ws) * T
+        ops, convs = k5_ops(C, st["Cm"], Hs * Ws)
+        k5["ops"] += ops * T
+        k5["conv_ops"] += convs * T
     log(f"[time] K5 for the run ({n_slices} slices x {len(stages)} "
         f"stages): kernel {k5['ms']:.3f} ms, plain {k5['plain']:.3f} ms, "
         f"unfused stages {k5['unfused']:.3f} ms")
@@ -1553,10 +1588,14 @@ def main() -> int:
         # pixel (YIQ there and back, the bilinear taps, rounding).
         "K7": bound(evm_run["k7_bytes"], 70 * n6 * H * W),
         # K5: each stage's bf16 input and output and its weights per
-        # launch; the operations of k5_ops.
-        "K5": bound(mp_run["k5"]["bytes"], mp_run["k5"]["ops"])}
+        # launch; the operations of k5_ops, the 1x1 convs' in TF32 on the
+        # tensor cores, the rest on the CUDA cores.
+        "K5": bound(mp_run["k5"]["bytes"], mp_run["k5"]["ops"],
+                    mp_run["k5"]["conv_ops"])}
     for k, (b_ms, by) in bounds.items():
         log(f"[bound] {k}: {b_ms:.4f} ms ({by})")
+    log("[bound] K5 with every operation on the CUDA cores: %.4f ms (%s)"
+        % bound(mp_run["k5"]["bytes"], mp_run["k5"]["ops"]))
 
     for mod in ("jax", "flatbuffers"):
         if mod in sys.modules:

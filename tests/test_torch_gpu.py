@@ -12,8 +12,9 @@ K3's and K4's means are held equal).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
 dot product, which cuBLAS may order otherwise).  K5 in float32 within
-``1e-5 * max|y|`` (the same sums in another order, TF32 off in the plain
-version); in bfloat16 within one bf16 ulp of each value, or ``1e-5 *
+``1e-5 * max|y|`` (the same sums in another order, the kernel's 1x1 convs
+in three TF32 passes that keep about 22 bits of each product, TF32 off in
+the plain version); in bfloat16 within one bf16 ulp of each value, or ``1e-5 *
 max|y|`` where that is larger (near zero the float32 rounding order alone
 decides the last bit).
 """
@@ -336,6 +337,22 @@ def k5_close(got: torch.Tensor, want: torch.Tensor) -> None:
                  ).all())
 
 
+def _k5_check(x, wts, w_row):
+    before = meshblocks_cuda.LAUNCHES
+    got = meshblocks_cuda.residual_stage(x, wts, w_row)
+    assert meshblocks_cuda.LAUNCHES == before + 1
+    want = meshblocks_cuda.residual_stage_plain(x, wts, w_row)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    k5_close(got, want)
+
+
+def _k5_input(seed, B, C, S, dtype, device):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(0, 1, (B, C, S)).astype(np.float32),
+                           device=device).to(dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -344,13 +361,77 @@ def test_k5_matches_plain(cuda, mesh_stages, stage, dtype):
     weights, on inputs spread like a stage's (entry maps of magnitude ~1)."""
     st, wts = mesh_stages[stage]
     wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
-    rng = np.random.default_rng(stage)
-    x = torch.as_tensor(rng.normal(0, 1, (5, st["C"], st["H"] * st["W"]))
-                        .astype(np.float32), device=cuda).to(dtype)
-    before = meshblocks_cuda.LAUNCHES
-    got = meshblocks_cuda.residual_stage(x, wts, st["W"])
-    assert meshblocks_cuda.LAUNCHES == before + 1
-    want = meshblocks_cuda.residual_stage_plain(x, wts, st["W"])
+    x = _k5_input(stage, 5, st["C"], st["H"] * st["W"], dtype, cuda)
+    _k5_check(x, wts, st["W"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 65])
+@pytest.mark.parametrize("stage", [0, 3])
+def test_k5_batch_sizes(cuda, mesh_stages, stage, B, dtype):
+    """One frame, and one more than the detector's slice of 64, at the
+    largest and the smallest map."""
+    st, wts = mesh_stages[stage]
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    x = _k5_input(B, B, st["C"], st["H"] * st["W"], dtype, cuda)
+    _k5_check(x, wts, st["W"])
+
+
+def _random_stage(rng, C, Cm, n=4):
+    """Stage weights scaled so the maps stay O(1)."""
+    g = lambda *s, sc=1.0: rng.normal(0, sc, s).astype(np.float32)
+    u = lambda n_: rng.uniform(0, 0.5, (1, 1, n_)).astype(np.float32)
+    blocks = [dict(w1=g(Cm, 1, 1, C, sc=C ** -0.5), b1=g(Cm, sc=0.1),
+                   a1=u(Cm), dw=g(1, 3, 3, Cm, sc=1 / 3), bdw=g(Cm, sc=0.1),
+                   w2=g(C, 1, 1, Cm, sc=Cm ** -0.5), b2=g(C, sc=0.1),
+                   a2=u(C)) for _ in range(n)]
+    return meshblocks_cuda.pack_stage_weights(u(C), blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,Cm", [(4, 32, 16, 8), (8, 16, 32, 16)])
+def test_k5_all_edge_shapes(cuda, H, W, C, Cm, dtype):
+    """Random weights (no symmetry for a transposed matrix to hide in) at
+    shapes whose rows are all within the halo of both frame edges: every
+    row and column meets the SAME padding, one band holds the frame."""
+    rng = np.random.default_rng(H * W + C)
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda)
+                                         for w in _random_stage(rng, C, Cm)))
+    x = _k5_input(H, 2, C, H * W, dtype, cuda)
+    _k5_check(x, wts, W)
+
+
+@pytest.mark.gpu
+def test_k5_on_another_stream(cuda, mesh_stages):
+    """A launch on a stream that is not the default one is ordered after
+    that stream's earlier work and gives the default stream's result."""
+    st, wts = mesh_stages[1]
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    x = _k5_input(7, 3, st["C"], st["H"] * st["W"], torch.bfloat16, cuda)
+    want = meshblocks_cuda.residual_stage(x, wts, st["W"])
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == x.shape
-    k5_close(got, want)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(2_000_000)
+        y = x * 2                      # the kernel must wait for this
+        got = meshblocks_cuda.residual_stage(y, wts, st["W"])
+    side.synchronize()
+    ref = meshblocks_cuda.residual_stage(x * 2, wts, st["W"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and not torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_k5_refuses_what_it_is_not_built_for(cuda, mesh_stages):
+    wts = _random_stage(np.random.default_rng(0), 24, 8)
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    with pytest.raises(ValueError, match="C = 2 \\* Cm"):
+        meshblocks_cuda.residual_stage(
+            torch.zeros(1, 24, 256, device=cuda), wts, 16)
+    st, wts = mesh_stages[0]
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    with pytest.raises(ValueError, match="w_row"):
+        meshblocks_cuda.residual_stage(
+            torch.zeros(1, 16, 128, device=cuda), wts, 2)

@@ -202,8 +202,10 @@ def test_k5_plain_matches_pallas_real_weights(models, stage, dtype):
 
 def test_k5_contract():
     """The JAX kernel's shape contract: S a multiple of 128; the plain
-    version is the wrapper's route for CPU tensors; the band geometry
-    holds each stage of the mesh net in the card's shared memory."""
+    version is the wrapper's route for CPU tensors; the CUDA kernel's
+    shapes are refused by name where it is not built for them; the band
+    geometry holds each stage of the mesh net, weights included, in the
+    card's shared memory."""
     a0, blocks = _random_stage(np.random.default_rng(0), 16, 8)
     wts = tmb.pack_stage_weights(a0, blocks)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -215,10 +217,83 @@ def test_k5_contract():
                                tmb.residual_stage_plain(x, wts, 16),
                                rtol=0, atol=0)
     assert tmb.LAUNCHES == 0
-    smem = 232448            # an H100's opt-in shared memory per block
-    assert [tmb.stage_rows(c, c // 2, h, h, 4, smem) for c, h in
-            [(16, 128), (32, 64), (64, 32), (128, 16)]] == [
-        (10, 221184), (10, 221184), (8, 196608), (16, 196608)]
+    for C, Cm, w_row in [(24, 8, 16), (16, 4, 16), (256, 128, 16)]:
+        with pytest.raises(ValueError, match="C = 2 \\* Cm"):
+            tmb.check_kernel_shape(C, Cm, w_row)
+    with pytest.raises(ValueError, match="w_row=6"):
+        tmb.check_kernel_shape(16, 8, 6)
+    for Cm in tmb.KERNEL_TILING:
+        tmb.check_kernel_shape(2 * Cm, Cm, 16)
+    # The band geometry of the four stages: rows a thread block, its
+    # shared memory and the planes' stride.  The memory counts both planes
+    # and one block's weights; every stage fits; the smallest map, whose
+    # frame with a conv's split weights does not, is cut into two bands.
+    got = [tmb.stage_rows(c, c // 2, h, h, 4, SMEM,
+                          16 * tmb.KERNEL_TILING[c // 2][0])
+           for c, h in MESH_STAGES]
+    assert got == [(10, 223488, 2312), (10, 227840, 1160),
+                   (8, 218112, 520), (8, 223232, 200)]
+    for (c, h), (rows, smem, stride) in zip(MESH_STAGES, got):
+        assert smem == 4 * (c * 3 // 2 * stride
+                            + tmb.weight_floats(c, c // 2)) <= SMEM
+        assert smem > 4 * c * 3 // 2 * h * min(h, rows + 8)
+    assert -(-16 // got[3][0]) >= 2
+    assert 4 * (192 * tmb.plane_stride(256, 16)
+                + tmb.weight_floats(128, 64)) > SMEM
+    with pytest.raises(ValueError, match="does not fit"):
+        tmb.stage_rows(128, 64, 16, 16, 4, 100000)
+
+
+SMEM = 232448                # an H100's opt-in shared memory per block
+MESH_STAGES = [(16, 128), (32, 64), (64, 32), (128, 16)]    # (C, H = W)
+
+
+@pytest.mark.parametrize("C,H", MESH_STAGES + [(16, 4), (32, 8)])
+def test_k5_bands_cover_the_frame(C, H):
+    """K5's bands write every row once, hold their rows plus four halo rows
+    a side clipped to the frame, and none holds more than ``stage_rows``
+    sized the shared memory for."""
+    n = 4
+    tile = 16 * tmb.KERNEL_TILING[C // 2][0]
+    W = H if H >= 16 else 32 if H == 4 else 16
+    rows, smem, stride = tmb.stage_rows(C, C // 2, H, W, n, SMEM, tile)
+    bands = [tmb.band_rows(H, rows, n, b) for b in range(-(-H // rows))]
+    assert [b[0] for b in bands] == list(range(0, H, rows))
+    assert [b[1] for b in bands] == [b[0] for b in bands[1:]] + [H]
+    for r0, r1, lo, hi in bands:
+        assert (lo, hi) == (max(0, r0 - n), min(H, r1 + n))
+        assert (hi - lo) * W <= stride
+        # after n blocks the rows still current are the band's own
+        vlo, vhi = lo, hi
+        for _ in range(n):
+            vlo, vhi = vlo + (vlo > 0), vhi - (vhi < H)
+        assert vlo <= r0 and vhi >= r1
+    assert smem == 4 * (C * 3 // 2 * stride + tmb.weight_floats(C, C // 2))
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("pixels", [192, 512, 1152, 2304, 128, 120, 1000])
+def test_k5_plane_stride(pixels, tile):
+    """A plane holds the pixels in whole tiles, 16-byte aligned, and its
+    stride is 8 modulo 32 words: lane (g, t) of a warp reads channel t's
+    pixels ``np * g ...`` (np = tile / 8 a lane), and the 32 lanes' words
+    fall into 32 different banks, ``np`` at a time."""
+    stride = tmb.plane_stride(pixels, tile)
+    assert stride % 32 == 8 and stride % 4 == 0
+    assert -(-pixels // tile) * tile <= stride < pixels + tile + 32
+    np_ = tile // 8
+    lanes = 32 // np_            # lanes served at once by a vector access
+    banks = {(t * stride + np_ * g + i) % 32
+             for g in range(lanes // 4) for t in range(4)
+             for i in range(np_)}
+    assert len(banks) == 32
+
+
+def test_k5_weight_floats():
+    """One conv's matrix as big and small parts, nine taps, and the
+    biases and slopes b1, a1, bdw (Cm each), b2, a2 (C each)."""
+    assert tmb.weight_floats(128, 64) == 2 * 128 * 64 + 12 * 64 + 2 * 128
+    assert tmb.weight_floats(16, 8) == 256 + 96 + 32
 
 
 # --- (d) the executors -----------------------------------------------------

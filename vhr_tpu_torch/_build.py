@@ -42,7 +42,7 @@ _SIGNATURES = {
                              + [_P] * 11),
     "vhr_fused_detect_roi_slots": ([_P] + [_I] * 7 + [_F, _I] + [_F] * 9
                                    + [_I] + [_P] * 9),
-    "vhr_residual_stage": [_P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P],
+    "vhr_residual_stage": [_P, _P, _I] + [_P] * 9 + [_I] * 11 + [_P],
 }
 
 

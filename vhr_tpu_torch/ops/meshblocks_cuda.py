@@ -11,7 +11,9 @@ graph is a run of identical bottleneck blocks::
 
 Op by op, every block moves about five feature maps through device memory;
 the kernel reads the stage input once and writes its output once, with the
-intermediate maps in shared memory and all arithmetic in float32.
+intermediate maps in shared memory as float32.  Its two 1x1 convs run on
+the tensor cores in three TF32 passes with float32 accumulators (about 22
+bits of each product), everything else in float32 on the CUDA cores.
 
 ``x`` is ``(B, C, S)`` with ``S = H * w_row``: a plain NCHW tensor seen
 with its spatial axes flattened, so the executor calls it with no
@@ -31,15 +33,17 @@ from .. import _build
 from ..device import float32_exact
 
 __all__ = ["StageWeights", "pack_stage_weights", "residual_stage",
-           "residual_stage_plain", "stage_rows", "LAUNCHES"]
+           "residual_stage_plain", "stage_rows", "plane_stride",
+           "weight_floats", "band_rows", "check_kernel_shape", "LAUNCHES"]
 
 # Kernel launches made by residual_stage (CUDA tensors only).
 LAUNCHES = 0
 
 _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-# Mid widths the kernel is compiled for (its per-pixel accumulators are
-# registers, so Cm is a template argument).
-KERNEL_CM = (8, 16, 32, 64)
+# Mid widths Cm the kernel is compiled for (C = 2 * Cm, the face-mesh net's
+# bottleneck), each with its launch shape (m-tiles of 16 pixels a warp works
+# on at a time, warps a thread block).
+KERNEL_TILING = {8: (2, 24), 16: (2, 16), 32: (2, 16), 64: (1, 16)}
 
 
 class StageWeights(NamedTuple):
@@ -114,28 +118,64 @@ def residual_stage_plain(x: torch.Tensor, wts: StageWeights,
     return x.to(dtype)
 
 
+def plane_stride(pixels: int, tile: int) -> int:
+    """Floats between two channels' planes in K5's shared memory: the held
+    pixels rounded up to whole tiles (a warp computes whole tiles), then
+    padded to 8 modulo 32, so that the four channels and eight pixel groups
+    a warp touches at once fall into 32 different banks."""
+    whole = -(-pixels // tile) * tile
+    return whole + (8 - whole) % 32
+
+
+def weight_floats(C: int, Cm: int) -> int:
+    """Floats of one block's weights in K5's shared memory: one 1x1 conv's
+    matrix split into big and small parts (w2 takes w1's place), the nine
+    depthwise taps, and the biases and slopes."""
+    return 2 * C * Cm + 9 * Cm + 3 * Cm + 2 * C
+
+
+def band_rows(H: int, rows: int, n_blocks: int, band: int):
+    """``(r0, r1, lo, hi)``: band ``band`` writes rows ``[r0, r1)`` and
+    holds rows ``[lo, hi)``, its own plus ``n_blocks`` halo rows on each
+    side (each 3x3 depthwise conv widens the rows it needs by one), clipped
+    to the frame."""
+    r0 = band * rows
+    r1 = min(H, r0 + rows)
+    return r0, r1, max(0, r0 - n_blocks), min(H, r1 + n_blocks)
+
+
+def check_kernel_shape(C: int, Cm: int, w_row: int) -> None:
+    """Raise for a stage the CUDA kernel is not compiled for."""
+    if Cm not in KERNEL_TILING or C != 2 * Cm:
+        raise ValueError(f"K5 is built for Cm in {tuple(KERNEL_TILING)} and "
+                         f"C = 2 * Cm, got C={C}, Cm={Cm}")
+    if w_row % 4 != 0:
+        raise ValueError(f"K5 takes a w_row that is a multiple of 4 (a "
+                         f"lane's pixels lie in one row), got w_row={w_row}")
+
+
 def stage_rows(C: int, Cm: int, H: int, W: int, n_blocks: int,
-               smem_bytes: int):
-    """Output rows per thread block of K5 and its shared memory bytes.
+               smem_bytes: int, tile: int = 16):
+    """Output rows per thread block of K5, its shared memory bytes and the
+    stride of a plane there, for tiles of ``tile`` pixels.
 
     A block holds its band of ``x`` (C channels) and of ``h`` (Cm channels)
-    in float32 over the band's rows plus ``n_blocks`` halo rows on each side
-    (each 3x3 depthwise conv widens the rows it needs by one), clipped to
-    the frame.  The band is the largest that fits ``smem_bytes``, then
-    evened out over the frame's rows.
+    as float32 planes of :func:`plane_stride` floats over the rows of
+    :func:`band_rows`, and one block's weights (:func:`weight_floats`).
+    The frame is cut into the fewest bands of equal height whose largest
+    fits ``smem_bytes``.
     """
-    row_bytes = (C + Cm) * W * 4
-    fit = smem_bytes // row_bytes
-    if H <= fit:
-        return H, H * row_bytes
-    most = fit - 2 * n_blocks
-    if most < 1:
-        raise ValueError(f"a residual stage of {C}+{Cm} channels at width "
-                         f"{W} does not fit {smem_bytes} bytes of shared "
-                         f"memory")
-    n_bands = -(-H // most)
-    rows = -(-H // n_bands)
-    return rows, min(H, rows + 2 * n_blocks) * row_bytes
+    for n_bands in range(1, H + 1):
+        rows = -(-H // n_bands)
+        held = max(hi - lo for _, _, lo, hi in
+                   (band_rows(H, rows, n_blocks, b)
+                    for b in range(-(-H // rows))))
+        stride = plane_stride(held * W, tile)
+        smem = 4 * ((C + Cm) * stride + weight_floats(C, Cm))
+        if smem <= smem_bytes:
+            return rows, smem, stride
+    raise ValueError(f"a residual stage of {C}+{Cm} channels at width {W} "
+                     f"does not fit {smem_bytes} bytes of shared memory")
 
 
 def residual_stage(x: torch.Tensor, wts: StageWeights,
@@ -144,8 +184,10 @@ def residual_stage(x: torch.Tensor, wts: StageWeights,
 
     ``x``: ``(B, C, S)`` float32 or bfloat16, ``S = H * w_row`` flattened
     spatial positions (``S % 128 == 0``, the JAX package's contract);
-    returns the same shape and dtype.  Arithmetic is float32 inside; the
-    output is rounded to ``x``'s dtype once, at the end.
+    returns the same shape and dtype.  Results are float32 inside; the
+    output is rounded to ``x``'s dtype once, at the end.  On a CUDA tensor
+    the kernel is launched, or the call raises for a shape it is not built
+    for (:func:`check_kernel_shape`).
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, C, S), got {tuple(x.shape)}")
@@ -165,22 +207,23 @@ def residual_stage(x: torch.Tensor, wts: StageWeights,
         return residual_stage_plain(x, wts, w_row)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if Cm not in KERNEL_CM or C % 4 != 0:
-        raise ValueError(f"K5 is built for Cm in {KERNEL_CM} and C a "
-                         f"multiple of 4, got C={C}, Cm={Cm}")
+    check_kernel_shape(C, Cm, w_row)
     if not 1 <= B <= 65535:
         raise ValueError(f"K5 takes 1 to 65535 frames a launch, got {B}")
     if not x.is_contiguous():
         raise ValueError("K5 needs a contiguous x")
     for name, w in zip(StageWeights._fields, wts):
         if (w.device != x.device or w.dtype != torch.float32
-                or not w.is_contiguous() or w.data_ptr() % 16):
+                or not w.is_contiguous()):
             raise ValueError(f"K5 weight {name} must be contiguous float32 "
-                             f"on {x.device}, 16-byte aligned")
+                             f"on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("K5 needs a 16-byte aligned x")
     H = S // w_row
+    mt, warps = KERNEL_TILING[Cm]
     smem_max = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
-    rows, smem = stage_rows(C, Cm, H, w_row, N, smem_max)
+    rows, smem, stride = stage_rows(C, Cm, H, w_row, N, smem_max, 16 * mt)
     out = torch.empty_like(x)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -188,6 +231,6 @@ def residual_stage(x: torch.Tensor, wts: StageWeights,
     LAUNCHES += 1
     _build.check(lib.vhr_residual_stage(
         x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-        *(w.data_ptr() for w in wts), B, C, Cm, H, w_row, N, rows, smem,
-        stream), "residual_stage")
+        *(w.data_ptr() for w in wts), B, C, Cm, H, w_row, N, rows, stride,
+        smem, mt, warps, stream), "residual_stage")
     return out

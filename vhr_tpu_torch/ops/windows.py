@@ -117,6 +117,6 @@ def rolling_bpm(signal: torch.Tensor, fps: float, band: HRBand,
         return rolling_bpm_fft(signal, fps, band, window_len, acquisition_len)
     if estimator == "welch":
         raise NotImplementedError(
-            "estimator='welch' is not ported yet (ROADMAP.md queue 1, item 2: "
+            "estimator='welch' is not ported yet (ROADMAP.md queue 1, item 6: "
             "rolling_bpm_welch)")
     raise ValueError(f"unknown estimator {estimator!r} (fft | welch)")
