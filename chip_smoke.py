@@ -39,8 +39,9 @@ Phases, each of which must pass (any failure exits non-zero):
 6. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
    decimate, YIQ) and K7 (upsample, add, u8 reconstruction) against their
    plain versions on the flagship clip's first 64 frames and on a 720p
-   slice of them (K6 also at a width of 1000; K7 on the band the pipeline
-   makes and on a random band of +-0.5, in both layouts): K6 within 1e-6,
+   slice of them (K6 also at a width of 1000 and at 1917x1079; K7 on the
+   band the pipeline makes and on a random band of +-0.5, in both
+   layouts): K6 within 1e-6,
    K7 within 1 u8 on at most 1e-3 of the values.  Then ``magnify`` with
    ``EVMConfig()`` on a T=600 clip (the app's 20 s chunk) with a 55 BPM
    pulse: K6 and K7 launched, u8 of the input's shape, the cheek's green
@@ -108,7 +109,8 @@ once, outputs written once; for the ROI kernels the ROI bytes of this run's
 boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
 CUDA cores; K5's two 1x1 convs, which run on the tensor cores in three TF32
 passes, count once over 495 TFLOP/s, which leaves K5 bound by its bytes).
-K5's times, like K4's, are taken with the card's queue filled ahead.  No
+K2's, K3's, K5's and K6's times, like K4's, are taken with the card's queue
+filled ahead (K2, K3 and K6 also paced by the host, in the log).  No
 single PyTorch call computes any of these functions, so
 ``library_ms`` is null (a K5 stage is 25 ops; their unfused time is logged
 beside it).  The last line is ``{"ok": true, "device":
@@ -393,8 +395,11 @@ def check_evm_kernels(dev, frames) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     n = EVM_CHECK_T
+    # K6 copies rows in 16-byte chunks at 1080p and 720p, in 4-byte chunks
+    # at a width of 1000 and a byte at a time at the odd width.
     clips = {f"{W}x{H}": frames[:n], "1280x720": frames[:n, :720, :1280],
-             f"1000x{H}": frames[:n, :, :1000]}
+             f"1000x{H}": frames[:n, :, :1000],
+             f"{W - 3}x{H - 1}": frames[:n, :H - 1, :W - 3]}
     k6_err, k7_err = 0.0, 0
     for name, x in clips.items():
         x = x.contiguous()
@@ -406,6 +411,8 @@ def check_evm_kernels(dev, frames) -> dict:
             raise AssertionError(f"K6 {name}: max |err| {err}")
         k6_err = max(k6_err, err)
         log(f"[check] K6 == plain at {name} x {n}: max |err| {err:.3g}")
+        if name.startswith(f"{W - 3}x"):
+            continue
         band = evm_band(got, EVMConfig())
         rand = torch.rand(band.shape, generator=gen, device=dev) - 0.5
         for bname, b in (("pipeline", band), ("random +-0.5", rand)):
@@ -511,7 +518,8 @@ def run_evm(dev, frames) -> dict:
     n = x.shape[0]
     frame_bytes = H * W * 3
     times = {
-        "K6": (cuda_ms(lambda: evm_cuda.yiq_pyrdown(x), inner=10),
+        "K6": (cuda_ms(lambda: evm_cuda.yiq_pyrdown(x), reps=5, inner=10,
+                       queue_ahead=True),
                cuda_ms(lambda: evm_cuda.yiq_pyrdown_plain(x)),
                n * 2 * frame_bytes),
         "K7": (cuda_ms(lambda: evm_recon_cuda.evm_reconstruct(planar, band),
@@ -519,11 +527,17 @@ def run_evm(dev, frames) -> dict:
                cuda_ms(lambda: evm_recon_cuda.evm_reconstruct_plain(planar,
                                                                     band)),
                n * 2 * frame_bytes + band.numel() * 4)}
+    k6_paced = cuda_ms(lambda: evm_cuda.yiq_pyrdown(x), inner=10)
     for k, (a, b, nbytes) in times.items():
         log(f"[time] {k} at {W}x{H} x {n}: kernel {a:.3f} ms "
             f"({a * 1e3 / n:.3f} us/frame, {nbytes / a / 1e6:.1f} GB/s), "
             f"plain {b:.3f} ms ({b * 1e3 / n:.3f} us/frame, "
             f"{nbytes / b / 1e6:.1f} GB/s)")
+    k6_bound = bound(times["K6"][2], 170 * n * (H // 2) * (W // 2))[0]
+    log(f"[time] K6 at {W}x{H} x {n}: {times['K6'][0]:.4f} ms with the queue "
+        f"filled ahead ({times['K6'][2] / times['K6'][0] / 1e6:.1f} GB/s, "
+        f"{k6_bound / times['K6'][0]:.3f} of the {k6_bound:.4f} ms bound), "
+        f"{k6_paced:.4f} ms paced by the host")
     mag = {"kernel T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg,
                                                       use_pallas=True)),
            "plain T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg)),
@@ -536,6 +550,18 @@ def run_evm(dev, frames) -> dict:
     m_ms = cuda_ms(lambda: measure_evm._measure_frames(frames, FPS))
     log(f"[time] EVM measure at {W}x{H} x {T}: {m_ms:.3f} ms = "
         f"{T / (m_ms / 1e3):.1f} frames/s")
+    # K6 and K7 at the paths' own launch sizes, the queue filled ahead:
+    # magnify launches each once on its T=600 chunk, the measure K6 once on
+    # the T=960 clip.
+    band = evm_band(evm_cuda.yiq_pyrdown(clip), cfg)
+    planar = evm_cuda.to_planar(clip)
+    own = {f"K6 T={EVM_T}": lambda: evm_cuda.yiq_pyrdown(clip),
+           f"K6 T={T}": lambda: evm_cuda.yiq_pyrdown(frames),
+           f"K7 T={EVM_T}": lambda: evm_recon_cuda.evm_reconstruct(planar,
+                                                                   band)}
+    log("[time] at the paths' own sizes, the queue filled ahead: " + ", ".join(
+        f"{k} {cuda_ms(fn, inner=3, queue_ahead=True):.4f} ms"
+        for k, fn in own.items()))
     return dict(launches=launches, k6_ms=times["K6"][0],
                 k6_plain=times["K6"][1], k7_ms=times["K7"][0],
                 k7_plain=times["K7"][1], k6_bytes=times["K6"][2],
@@ -1486,6 +1512,20 @@ def main() -> int:
     log(f"[time] K3 on the clip's cheek ROIs at {W}x{H} x {T}: kernel "
         f"{k3_ms:.3f} ms, K2 {k2_ms:.3f} ms, plain {k2_plain:.3f} ms (one "
         f"plain version for both)")
+    # The same two with the card's queue filled ahead: the card alone.
+    k2_paced, k3_paced = k2_ms, k3_ms
+    k2_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_cuda(
+        frames, clip_rois), reps=5, inner=10, queue_ahead=True)
+    k3_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_batched_cuda(
+        frames, clip_rois), reps=5, inner=10, queue_ahead=True)
+    # K3 as streaming ingest launches it, on one chunk of STREAM_CHUNK.
+    k3_chunk = cuda_ms(lambda: roi_means_cuda.roi_channel_means_batched_cuda(
+        frames[:STREAM_CHUNK], clip_rois[:STREAM_CHUNK]), reps=5, inner=10,
+        queue_ahead=True)
+    log(f"[time] K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms with the queue filled "
+        f"ahead; {k2_paced:.4f}, {k3_paced:.4f} ms paced by the host; K3 on "
+        f"a chunk of {STREAM_CHUNK} frames {k3_chunk:.4f} ms, the queue "
+        f"filled ahead")
     slot_frames = fused_pool["frames"]
     state = fused_pool["pool"]._state
     carry = torch.cat([state.last_box, state.hold_budget[:, None],

@@ -123,6 +123,78 @@ def test_yiq_pyrdown_any_width_and_odd_height():
         np.asarray(pallas_evm.to_planar(jnp.asarray(frames))))
 
 
+# (T, H, W): strips, segments, steps a segment, blocks, copy bytes at an
+# aligned base.  1080p and 720p are the EVM paths' frames.
+_K6_GRIDS = {(64, 1080, 1920): (8, 34, 2, 17408, 16),
+             (600, 1080, 1920): (8, 34, 2, 163200, 16),
+             (64, 720, 1280): (5, 23, 2, 7360, 16),
+             (64, 1080, 1000): (4, 34, 2, 8704, 4),
+             (2, 35, 131): (1, 2, 2, 4, 1),
+             (1, 2, 2): (1, 1, 1, 1, 1),
+             (3, 91, 100): (1, 3, 2, 9, 4),
+             (1, 2161, 3841): (15, 68, 2, 1020, 1)}
+
+
+@pytest.mark.parametrize("shape", list(_K6_GRIDS))
+def test_k6_geometry(shape):
+    """K6's grid covers the output once: every strip and segment holds
+    output pixels, and together they hold all ``H//2 x W//2`` of them."""
+    T, H, W = shape
+    geo = evm_cuda.k6_geometry(T, H, W, base_ptr=4096)
+    assert (geo.strips, geo.segments, geo.seg_steps, geo.blocks,
+            geo.copy_bytes) == _K6_GRIDS[shape]
+    sh = evm_cuda.KERNEL_SHAPE
+    h_out, w_out = H // 2, W // 2
+    rows = geo.seg_steps * sh["warps"]
+    assert geo.seg_steps <= sh["max_steps"]
+    assert (geo.strips - 1) * sh["strip_cols"] < w_out \
+        <= geo.strips * sh["strip_cols"]
+    assert (geo.segments - 1) * rows < h_out <= geo.segments * rows
+
+
+@pytest.mark.parametrize("base,W,want", [
+    (0, 1920, 16), (4096, 1280, 16), (4096 + 8, 1920, 4), (4096 + 1, 1920, 1),
+    (4096, 1000, 4), (4096, 131, 1), (4096, 100, 4), (4096, 2, 1),
+    (13755, 131, 1),                  # frames[1:] of (2, 35, 131): 3HW in
+    (4096 + 153600, 1280, 16)])       # frames[1:] of (T, 40, 1280)
+def test_k6_copy_width(base, W, want):
+    """16-byte copies need the base and the row pitch ``3W`` (and so the
+    frame stride ``3HW``) 16-byte aligned; 4-byte copies 4-byte aligned;
+    anything else is loaded a byte at a time."""
+    assert evm_cuda.copy_width(base, W) == want
+    if want > 1:
+        assert base % want == 0 and (3 * W) % want == 0
+
+
+def test_k6_ring_fits():
+    """The ring holds every row a step reads plus the rows landing for the
+    next ones, each ring row holds a strip's 16-byte chunks with the halo
+    and each lane's 40-byte window, and four blocks fit on an SM within the
+    48 KB a block may hold statically."""
+    sh = evm_cuda.KERNEL_SHAPE
+    geo = evm_cuda.k6_geometry(64, 1080, 1920)
+    warps, depth = sh["warps"], sh["depth"]
+    assert geo.ring_rows == 2 * warps * depth + 3
+    assert sh["strip_cols"] == 4 * 32 and warps * 32 <= 1024
+    win = 3 * (2 * sh["strip_cols"] + 4)          # needed bytes of a row
+    assert sh["row_bytes"] % 16 == 0
+    assert sh["row_bytes"] >= -(-(win + 16 - 6) // 16) * 16
+    assert sh["row_bytes"] >= 24 * 31 + 8 + 40    # the last lane's window
+    assert geo.smem_bytes == geo.ring_rows * sh["row_bytes"]
+    assert geo.smem_bytes <= 48 * 1024            # static shared memory
+    assert 4 * (geo.smem_bytes + 1024) <= 228 * 1024   # an H100 SM's
+
+
+@pytest.mark.parametrize("H,W", [(35, 131), (36, 131), (35, 1920), (2, 3)])
+def test_k6_odd_sizes_keep_floor_halves(H, W):
+    frames = np.random.default_rng(H * W).integers(0, 256, (2, H, W, 3),
+                                                   np.uint8)
+    got = evm_cuda.yiq_pyrdown(_t(frames))
+    assert tuple(got.shape) == (2, 3, H // 2, W // 2)
+    geo = evm_cuda.k6_geometry(2, H, W)
+    assert geo.strips * evm_cuda.KERNEL_SHAPE["strip_cols"] >= W // 2
+
+
 @pytest.mark.parametrize("n_in,n_out", [(9, 72), (16, 128), (68, 1080),
                                         (5, 5), (7, 30)])
 def test_resize_matrix_and_kernel_tables(n_in, n_out):

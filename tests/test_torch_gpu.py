@@ -191,12 +191,21 @@ def test_k4_takes_any_size_after_another(gpu_clip):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 256), (3, 91, 100), (1, 2, 2),
-                                   (2, 35, 131)])
+                                   (2, 35, 131), (1, 36, 1920),
+                                   (2, 40, 1280), (2, 35, 1000),
+                                   (1, 1080, 1920), (3, 40, 1280, "view")])
 def test_k6_matches_plain(cuda, shape):
-    T, H, W = shape
+    """16-byte copies (widths 256, 1280, 1920; several strips, one and more
+    segments, the 1080p frame of the EVM paths), 4-byte copies (width
+    1000, 100) and byte loads (131, 2), odd heights, and a view whose base
+    lies one frame into a contiguous batch."""
+    T, H, W = shape[:3]
     rng = np.random.default_rng(H)
     frames = torch.as_tensor(rng.integers(0, 256, (T, H, W, 3), np.uint8),
                              device=cuda)
+    if len(shape) > 3:
+        frames = frames[1:]
+        T -= 1
     before = evm_cuda.LAUNCHES
     got = evm_cuda.yiq_pyrdown(frames)
     assert evm_cuda.LAUNCHES == before + 1
@@ -204,6 +213,38 @@ def test_k6_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert got.shape == (T, 3, H // 2, W // 2)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_steps", [3, 16])
+@pytest.mark.parametrize("W", [1920, 1000, 131])
+def test_k6_long_segments(cuda, monkeypatch, W, max_steps):
+    """Segments longer than the ring (the host's ``max_steps`` only: the
+    kernel is the same), so that the ring's slots are refilled while the
+    block walks down."""
+    monkeypatch.setitem(evm_cuda.KERNEL_SHAPE, "max_steps", max_steps)
+    rng = np.random.default_rng(W + max_steps)
+    frames = torch.as_tensor(rng.integers(0, 256, (2, 299, W, 3), np.uint8),
+                             device=cuda)
+    assert evm_cuda.k6_geometry(2, 299, W).seg_steps > 2
+    got = evm_cuda.yiq_pyrdown(frames)
+    want = evm_cuda.yiq_pyrdown_plain(frames)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1920, 1000, 131])
+def test_k6_same_bits_twice(cuda, W):
+    """Two launches on the same frames give the same bits (16-byte, 4-byte
+    and byte copies)."""
+    rng = np.random.default_rng(W)
+    frames = torch.as_tensor(rng.integers(0, 256, (2, 67, W, 3), np.uint8),
+                             device=cuda)
+    first = evm_cuda.yiq_pyrdown(frames)
+    again = evm_cuda.yiq_pyrdown(frames)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.gpu

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "vhr_yiq_pyrdown": [_P, _P, _I, _I, _I, _P],
+    "vhr_yiq_pyrdown": [_P, _P] + [_I] * 10 + [_P],
     "vhr_evm_reconstruct": ([_P] + [_L] * 4 + [_P] + [_L] * 4 + [_P] * 9
                             + [_I] * 5 + [_P]),
     "vhr_roi_means_u8": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],

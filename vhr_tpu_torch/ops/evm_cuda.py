@@ -3,12 +3,16 @@ kernel.
 
 Port of ``vhr_tpu/ops/pallas_evm.py::yiq_pyrdown_pallas``; the kernel is
 ``csrc/evm_pyrdown.cu``.  It reads interleaved u8 frames of any width (the
-Pallas kernel's ``W % 128`` and planar input are Mosaic layout needs).  A
-CPU tensor takes the plain version (:func:`yiq_pyrdown_plain`); a CUDA
-tensor launches the kernel or raises.
+Pallas kernel's ``W % 128`` and planar input are Mosaic layout needs) into
+a ring of rows in shared memory, in 16-byte copies where the base and the
+row pitch allow, else 4-byte copies or bytes (:func:`copy_width`); its
+launch is :func:`k6_geometry`.  A CPU tensor takes the plain version
+(:func:`yiq_pyrdown_plain`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -16,10 +20,62 @@ import torch
 from .. import _build
 from . import color
 
-__all__ = ["yiq_pyrdown", "yiq_pyrdown_plain", "to_planar", "LAUNCHES"]
+__all__ = ["yiq_pyrdown", "yiq_pyrdown_plain", "to_planar", "k6_geometry",
+           "copy_width", "K6Geometry", "KERNEL_SHAPE", "LAUNCHES"]
 
 # Kernel launches made by yiq_pyrdown (CUDA tensors only).
 LAUNCHES = 0
+
+# K6's launch shape.  ``csrc/evm_pyrdown.cu`` is compiled with the same
+# numbers and refuses a launch that disagrees.  A thread block owns a strip
+# of ``strip_cols`` output columns (4 a lane, one warp a row) and walks
+# down a segment of at most ``max_steps`` steps of ``warps`` output rows,
+# with ``depth`` groups of ``2 * warps`` input rows in its ring (one landing
+# while the warps compute on the other); a ring row holds ``row_bytes``.
+# ``max_steps`` is the host's alone: short segments keep the blocks that
+# run at once on about two frames, which was fastest on the H100.
+KERNEL_SHAPE = dict(strip_cols=128, warps=8, depth=2, max_steps=2,
+                    row_bytes=800)
+
+
+class K6Geometry(NamedTuple):
+    """One K6 launch: copy width in bytes, the grid (``T * segments *
+    strips`` blocks) and the ring."""
+
+    copy_bytes: int
+    strips: int
+    segments: int
+    seg_steps: int
+    ring_rows: int
+    smem_bytes: int
+    blocks: int
+
+
+def copy_width(base_ptr: int, W: int) -> int:
+    """The widest copy (16, 4 or 1 bytes) that every row start of a
+    contiguous ``(T, H, W, 3)`` u8 tensor at ``base_ptr`` is aligned to:
+    the base, the row pitch ``3W`` and the frame stride ``3HW`` (a multiple
+    of the pitch) all divisible by it."""
+    for v in (16, 4):
+        if base_ptr % v == 0 and (3 * W) % v == 0:
+            return v
+    return 1
+
+
+def k6_geometry(T: int, H: int, W: int, base_ptr: int = 0) -> K6Geometry:
+    """K6's launch for ``(T, H, W, 3)`` u8 frames at ``base_ptr``."""
+    sh = KERNEL_SHAPE
+    h_out, w_out = H // 2, W // 2
+    steps = -(-h_out // sh["warps"])
+    segments = -(-steps // sh["max_steps"])
+    seg_steps = -(-steps // segments)
+    ring_rows = 2 * sh["warps"] * sh["depth"] + 3
+    strips = -(-w_out // sh["strip_cols"])
+    return K6Geometry(copy_bytes=copy_width(base_ptr, W), strips=strips,
+                      segments=segments, seg_steps=seg_steps,
+                      ring_rows=ring_rows,
+                      smem_bytes=ring_rows * sh["row_bytes"],
+                      blocks=T * segments * strips)
 
 _W5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 # The kernels scale u8 values by float32(1/255), a multiplication (the JAX
@@ -81,10 +137,13 @@ def yiq_pyrdown(frames: torch.Tensor) -> torch.Tensor:
         raise ValueError("K6 needs contiguous frames")
     out = torch.empty((T, 3, H // 2, W // 2), dtype=torch.float32,
                       device=frames.device)
+    geo = k6_geometry(T, H, W, frames.data_ptr())
     lib = _build.library()
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     global LAUNCHES
     LAUNCHES += 1
-    _build.check(lib.vhr_yiq_pyrdown(frames.data_ptr(), out.data_ptr(),
-                                     T, H, W, stream), "yiq_pyrdown")
+    _build.check(lib.vhr_yiq_pyrdown(
+        frames.data_ptr(), out.data_ptr(), T, H, W, geo.copy_bytes,
+        KERNEL_SHAPE["strip_cols"], KERNEL_SHAPE["warps"], geo.ring_rows,
+        geo.strips, geo.segments, geo.seg_steps, stream), "yiq_pyrdown")
     return out
