@@ -42,9 +42,12 @@ Phases, each of which must pass (any failure exits non-zero):
    slice of them (K6 also at a width of 1000 and at 1917x1079; K7 on the
    band the pipeline makes and on a random band of +-0.5, in both
    layouts): K6 within 1e-6,
-   K7 within 1 u8 on at most 1e-3 of the values.  Then ``magnify`` with
+   K7 within 1 u8 on at most 1e-3 of the values, and its vectorised
+   instance (interleaved frames at 1080p and 720p) equal bit for bit to its
+   generic one.  Then ``magnify`` with
    ``EVMConfig()`` on a T=600 clip (the app's 20 s chunk) with a 55 BPM
-   pulse: K6 and K7 launched, u8 of the input's shape, the cheek's green
+   pulse: K6 and K7 launched (K7's vectorised instance), u8 of the input's
+   shape, the cheek's green
    pulse amplified more than 5x, the kernel route within 2 u8 of the plain
    route at T=64.  Then the EVM measure (``_measure_frames``) on the
    flagship clip: K6 launched, >= 95% of post-acquisition frames valid, BPM
@@ -109,9 +112,9 @@ once, outputs written once; for the ROI kernels the ROI bytes of this run's
 boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
 CUDA cores; K5's two 1x1 convs, which run on the tensor cores in three TF32
 passes, count once over 495 TFLOP/s, which leaves K5 bound by its bytes).
-K2's, K3's, K5's and K6's times, like K4's, are taken with the card's queue
-filled ahead (K2, K3 and K6 also paced by the host, in the log).  No
-single PyTorch call computes any of these functions, so
+K2's, K3's, K5's, K6's and K7's times, like K4's, are taken with the card's
+queue filled ahead (K2, K3, K6 and K7 also paced by the host, in the
+log).  No single PyTorch call computes any of these functions, so
 ``library_ms`` is null (a K5 stage is 25 ops; their unfused time is logged
 beside it).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card the script exits non-zero before printing
@@ -388,7 +391,9 @@ def check_evm_kernels(dev, frames) -> dict:
     """K6 and K7 against their plain versions on the clip's first
     EVM_CHECK_T frames at full size, on a 720p slice and at a width of 1000;
     K7 on the pipeline's band and on a random band of +-0.5, read and
-    written interleaved (the EVM path's layout) and planar."""
+    written interleaved (the EVM path's layout) and planar; where the
+    interleaved frames take K7's vectorised instance (1080p, 720p), it must
+    equal the generic instance bit for bit."""
     import torch
     from vhr_tpu_torch.config import EVMConfig
     from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda
@@ -420,7 +425,9 @@ def check_evm_kernels(dev, frames) -> dict:
                 planar = evm_cuda.to_planar(x)
                 if layout == "planar":
                     planar = planar.contiguous()
+                vec = evm_recon_cuda.VEC_LAUNCHES
                 g = evm_recon_cuda.evm_reconstruct(planar, b)
+                vec = evm_recon_cuda.VEC_LAUNCHES > vec
                 w_ = evm_recon_cuda.evm_reconstruct_plain(planar, b)
                 torch.cuda.synchronize()
                 mx, frac = u8_diff(g, w_)
@@ -428,9 +435,19 @@ def check_evm_kernels(dev, frames) -> dict:
                     raise AssertionError(f"K7 {name} {bname} {layout}: max "
                                          f"|diff| {mx}, share {frac}")
                 k7_err = max(k7_err, mx)
-                log(f"[check] K7 == plain at {name} x {n}, {bname} band "
+                log(f"[check] K7 ({'vectorised' if vec else 'generic'}) == "
+                    f"plain at {name} x {n}, {bname} band "
                     f"{tuple(b.shape[2:])}, {layout}: max |diff| {mx} u8 "
                     f"on {frac:.3g} of the values")
+                if layout == "interleaved" and name != f"1000x{H}":
+                    if not vec:
+                        raise AssertionError(f"K7 {name}: the vectorised "
+                                             f"instance was not taken")
+                    same_bits(f"K7 {name} {bname} vectorised vs generic",
+                              (g,), (evm_recon_cuda.evm_reconstruct(
+                                  planar, b, instance="generic"),))
+                    log(f"[check] K7 vectorised == generic bit for bit at "
+                        f"{name} x {n}, {bname} band")
     return dict(k6_err=k6_err, k7_err=float(k7_err))
 
 
@@ -461,13 +478,17 @@ def run_evm(dev, frames) -> dict:
     cfg = EVMConfig()
     clip, _ = make_clip(dev, EVM_T, H, W, seed=SEED + 6, bpm=EVM_BPM)
     evm_cuda.LAUNCHES = evm_recon_cuda.LAUNCHES = 0
+    evm_recon_cuda.VEC_LAUNCHES = evm_recon_cuda.GENERIC_LAUNCHES = 0
     out = evm.magnify(clip, FPS, cfg, use_pallas=True)
     torch.cuda.synchronize()
-    launches = {"K6": evm_cuda.LAUNCHES, "K7": evm_recon_cuda.LAUNCHES}
+    launches = {"K6": evm_cuda.LAUNCHES, "K7": evm_recon_cuda.LAUNCHES,
+                "K7 vectorised": evm_recon_cuda.VEC_LAUNCHES}
     log(f"[evm] kernel launches in magnify: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of magnify never launched: "
                              f"{launches}")
+    if launches["K7 vectorised"] != launches["K7"]:
+        raise AssertionError("magnify launched K7's generic instance")
     if out.dtype != torch.uint8 or out.shape != clip.shape:
         raise AssertionError(f"magnify gave {out.dtype} {tuple(out.shape)}")
     amp_in, amp_out = cheek_pulse(clip, EVM_BPM), cheek_pulse(out, EVM_BPM)
@@ -523,11 +544,13 @@ def run_evm(dev, frames) -> dict:
                cuda_ms(lambda: evm_cuda.yiq_pyrdown_plain(x)),
                n * 2 * frame_bytes),
         "K7": (cuda_ms(lambda: evm_recon_cuda.evm_reconstruct(planar, band),
-                       inner=10),
+                       reps=5, inner=10, queue_ahead=True),
                cuda_ms(lambda: evm_recon_cuda.evm_reconstruct_plain(planar,
                                                                     band)),
                n * 2 * frame_bytes + band.numel() * 4)}
     k6_paced = cuda_ms(lambda: evm_cuda.yiq_pyrdown(x), inner=10)
+    k7_paced = cuda_ms(lambda: evm_recon_cuda.evm_reconstruct(planar, band),
+                       inner=10)
     for k, (a, b, nbytes) in times.items():
         log(f"[time] {k} at {W}x{H} x {n}: kernel {a:.3f} ms "
             f"({a * 1e3 / n:.3f} us/frame, {nbytes / a / 1e6:.1f} GB/s), "
@@ -538,6 +561,11 @@ def run_evm(dev, frames) -> dict:
         f"filled ahead ({times['K6'][2] / times['K6'][0] / 1e6:.1f} GB/s, "
         f"{k6_bound / times['K6'][0]:.3f} of the {k6_bound:.4f} ms bound), "
         f"{k6_paced:.4f} ms paced by the host")
+    k7_bound = bound(times["K7"][2], 70 * n * H * W)[0]
+    log(f"[time] K7 at {W}x{H} x {n}: {times['K7'][0]:.4f} ms with the "
+        f"queue filled ahead ({times['K7'][2] / times['K7'][0] / 1e6:.1f} GB/s, "
+        f"{k7_bound / times['K7'][0]:.3f} of the {k7_bound:.4f} ms bound), "
+        f"{k7_paced:.4f} ms paced by the host")
     mag = {"kernel T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg,
                                                       use_pallas=True)),
            "plain T=64": cuda_ms(lambda: evm.magnify(part, FPS, cfg)),
@@ -559,9 +587,15 @@ def run_evm(dev, frames) -> dict:
            f"K6 T={T}": lambda: evm_cuda.yiq_pyrdown(frames),
            f"K7 T={EVM_T}": lambda: evm_recon_cuda.evm_reconstruct(planar,
                                                                    band)}
+    own_ms = {k: cuda_ms(fn, inner=3, queue_ahead=True)
+              for k, fn in own.items()}
     log("[time] at the paths' own sizes, the queue filled ahead: " + ", ".join(
-        f"{k} {cuda_ms(fn, inner=3, queue_ahead=True):.4f} ms"
-        for k, fn in own.items()))
+        f"{k} {t_ms:.4f} ms" for k, t_ms in own_ms.items()))
+    k7_own_bound = bound(EVM_T * 2 * frame_bytes + band.numel() * 4,
+                         70 * EVM_T * H * W)[0]
+    log(f"[time] K7 T={EVM_T}: {own_ms[f'K7 T={EVM_T}']:.4f} ms, bound "
+        f"{k7_own_bound:.4f} ms (bytes; "
+        f"{k7_own_bound / own_ms[f'K7 T={EVM_T}']:.3f} of it)")
     return dict(launches=launches, k6_ms=times["K6"][0],
                 k6_plain=times["K6"][1], k7_ms=times["K7"][0],
                 k7_plain=times["K7"][1], k6_bytes=times["K6"][2],
@@ -1522,10 +1556,13 @@ def main() -> int:
     k3_chunk = cuda_ms(lambda: roi_means_cuda.roi_channel_means_batched_cuda(
         frames[:STREAM_CHUNK], clip_rois[:STREAM_CHUNK]), reps=5, inner=10,
         queue_ahead=True)
+    chunk_bytes = roi_bytes(clip_rois[:STREAM_CHUNK], H, W)
+    k3_chunk_bound = bound(chunk_bytes + STREAM_CHUNK * (16 + 16),
+                           chunk_bytes)[0]
     log(f"[time] K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms with the queue filled "
         f"ahead; {k2_paced:.4f}, {k3_paced:.4f} ms paced by the host; K3 on "
         f"a chunk of {STREAM_CHUNK} frames {k3_chunk:.4f} ms, the queue "
-        f"filled ahead")
+        f"filled ahead, bound {k3_chunk_bound:.4f} ms (bytes)")
     slot_frames = fused_pool["frames"]
     state = fused_pool["pool"]._state
     carry = torch.cat([state.last_box, state.hold_budget[:, None],

@@ -213,6 +213,114 @@ def test_resize_matrix_and_kernel_tables(n_in, n_out):
     assert (lo <= hi).all() and ((w_hi == 0) | (hi == lo + 1)).all()
 
 
+@pytest.mark.parametrize("n_in,n_out", [(68, 1080), (120, 1920), (45, 720),
+                                        (80, 1280), (63, 1000), (9, 130),
+                                        (40, 16), (7, 7), (1, 5)])
+def test_k7_tables_monotone(n_in, n_out):
+    """The vectorised K7 stages, for a strip of columns, band columns
+    ``lo[first]`` to ``min(lo[last] + 1, wb - 1)`` alone: that holds
+    because ``lo`` never decreases and ``hi`` is ``lo`` or ``lo + 1``."""
+    lo, hi, _, _ = evm_recon_cuda._tap_arrays(n_in, n_out)
+    assert (np.diff(lo) >= 0).all()
+    assert ((hi == lo) | (hi == lo + 1)).all()
+    assert lo.min() >= 0 and hi.max() <= n_in - 1
+
+
+_FRAME = 3 * 1080 * 1920
+
+
+# (name, input base, input strides (t, c, h, w), output base, output
+# strides, W, wb) -> the instance.  Output strides are empty_like's.
+@pytest.mark.parametrize("case,want", [
+    ((4096, (_FRAME, 1, 5760, 3), 8192, (_FRAME, 1, 5760, 3), 1920, 120),
+     "vector"),                                        # 1080p interleaved
+    ((4096, (3 * 720 * 1280, 1, 3840, 3), 8192, (3 * 720 * 1280, 1, 3840, 3),
+      1280, 80), "vector"),                            # 720p
+    ((4096, (_FRAME, 1, 5760, 3), 8192, (3 * 720 * 1280, 1, 3840, 3), 1280,
+      80), "vector"),                        # a 720p slice of 1080p frames
+    ((4096 + _FRAME, (_FRAME, 1, 5760, 3), 8192, (_FRAME, 1, 5760, 3), 1920,
+      120), "vector"),                                 # frames[1:]
+    ((4096, (3 * 1080 * 1000, 1, 3000, 3), 8192, (3 * 1080 * 1000, 1, 3000, 3),
+      1000, 63), "generic"),                           # W = 1000
+    ((4096, (3 * 75 * 130, 1, 390, 3), 8192, (3 * 75 * 130, 1, 390, 3), 130,
+      9), "generic"),                                  # W = 130
+    ((4096, (_FRAME, 1080 * 1920, 1920, 1), 8192,
+      (_FRAME, 1080 * 1920, 1920, 1), 1920, 120), "generic"),     # planar
+    ((4096 + 3, (_FRAME, 1, 5760, 3), 8192, (_FRAME, 1, 5760, 3), 1920, 120),
+     "generic"),                                       # a misaligned base
+    ((4096, (_FRAME, 1, 5760, 3), 8192 + 8, (_FRAME, 1, 5760, 3), 1920, 120),
+     "generic"),                                       # a misaligned output
+    ((4096, (3 * 1080 * 1928, 1, 5784, 3), 8192, (_FRAME, 1, 5760, 3), 1920,
+      120), "generic"),                                # a 5784-byte pitch
+    ((4096, (3 * 35 * 1008, 1, 3024, 3), 8192, (3 * 35 * 1008, 1, 3024, 3),
+      1008, 63), "vector"),                            # a part strip
+    ((4096, (3 * 33 * 16, 1, 48, 3), 8192, (3 * 33 * 16, 1, 48, 3), 16, 40),
+     "vector"),                                        # a band wider than W
+    ((4096, (3 * 33 * 16, 1, 48, 3), 8192, (3 * 33 * 16, 1, 48, 3), 16,
+      20000), "generic"),                # its strip's band too wide to stage
+])
+def test_k7_instance(case, want):
+    """The instance follows from the strides, the base pointers, W and the
+    band's width alone."""
+    assert evm_recon_cuda.k7_instance(*case) == want
+
+
+def _band_width(n):
+    for _ in range(4):
+        n = -(-n // 2)
+    return n
+
+
+# (T, H, W, wb): strips, segments, segment rows, band columns, blocks.
+_K7_GRIDS = {(64, 1080, 1920, 120): (15, 9, 128, 10, 8640),
+             (600, 1080, 1920, 120): (15, 9, 128, 10, 81000),
+             (64, 720, 1280, 80): (10, 6, 128, 10, 3840),
+             (3, 35, 1008, 63): (8, 1, 128, 10, 24),
+             (2, 33, 16, 40): (1, 1, 128, 40, 2),
+             (1, 1, 16, 1): (1, 1, 128, 1, 1),
+             (2, 129, 144, 9): (2, 2, 128, 9, 8),
+             (1, 70, 16, 400): (1, 3, 32, 377, 3)}
+
+
+@pytest.mark.parametrize("shape", list(_K7_GRIDS))
+def test_k7_geometry(shape):
+    """The vectorised K7's grid, walked block by block as the kernel walks
+    it: every output pixel of every frame is written exactly once, tails
+    included, and every column's two band columns lie among those its
+    strip stages."""
+    T, H, W, wb = shape
+    geo = evm_recon_cuda.k7_geometry(T, H, W, wb)
+    assert (geo.strips, geo.segments, geo.seg_rows, geo.band_cols,
+            geo.blocks) == _K7_GRIDS[shape]
+    sh = evm_recon_cuda.KERNEL_SHAPE
+    seg, sc = geo.seg_rows, sh["strip_cols"]
+    assert seg % sh["pass_rows"] == 0 and seg <= sh["seg_rows"]
+    assert geo.smem_bytes == (sh["ring"] * sh["pass_rows"] * sh["pitch"]
+                              + sc * sh["tap_bytes"]
+                              + 12 * geo.band_cols * seg)
+    assert geo.smem_bytes <= evm_recon_cuda.MAX_SMEM
+    lo, hi, _, _ = evm_recon_cuda._tap_arrays(wb, W)
+    walk_t = min(T, 2)
+    written = np.zeros((walk_t, H, W), np.int32)
+    for b in range(walk_t * geo.segments * geo.strips):
+        strip, rest = b % geo.strips, b // geo.strips
+        s, t = rest % geo.segments, rest // geo.segments
+        x0, r0 = strip * sc, s * seg
+        ncols, nr = min(sc, W - x0), min(seg, H - r0)
+        assert ncols % 16 == 0 and nr >= 1
+        passes = -(-nr // sh["pass_rows"])
+        for p in range(passes):
+            pr = min(sh["pass_rows"], nr - p * sh["pass_rows"])
+            r = r0 + p * sh["pass_rows"]
+            written[t, r:r + pr, x0:x0 + ncols] += 1
+        cb0 = lo[x0]
+        nb = min(lo[x0 + ncols - 1] + 1, wb - 1) - cb0 + 1
+        assert 1 <= nb <= geo.band_cols
+        cols = slice(x0, x0 + ncols)
+        assert (lo[cols] >= cb0).all() and (hi[cols] - cb0 < nb).all()
+    assert (written == 1).all()
+
+
 @pytest.mark.parametrize("band_kind", ["small", "clamp"])
 def test_evm_reconstruct_plain_matches_pallas(band_kind):
     rng = np.random.default_rng(3)

@@ -11,7 +11,8 @@ Boxes, flags, counts and carries must be equal; means within
 K3's and K4's means are held equal).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
-dot product, which cuBLAS may order otherwise).  K5 in float32 within
+dot product, which cuBLAS may order otherwise), and K7's two instances
+equal bit for bit.  K5 in float32 within
 ``1e-5 * max|y|`` (the same sums in another order, the kernel's 1x1 convs
 in three TF32 passes that keep about 22 bits of each product, TF32 off in
 the plain version); in bfloat16 within one bf16 ulp of each value, or ``1e-5 *
@@ -269,6 +270,81 @@ def test_k7_matches_plain(cuda, layout, amp):
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     assert int(diff.max()) <= 1
     assert float((diff > 0).float().mean()) <= 1e-3
+
+
+# (T, H, W, hb, wb), "view": K7's vectorised instance over several strips
+# and segments, the 1080p frame of the EVM path with its band, a part strip
+# (W = 1008) and a part segment, a view one frame into a batch, a band wider
+# than the frame, one whose staged columns halve the segment, a pass tail.
+_K7_VEC_SHAPES = [(2, 64, 256, 4, 16), (1, 1080, 1920, 68, 120),
+                  (3, 75, 1008, 5, 63), (3, 40, 1280, 3, 80, "view"),
+                  (2, 33, 16, 3, 40), (1, 70, 16, 5, 400),
+                  (2, 129, 144, 9, 9)]
+
+
+def _k7_input(cuda, shape, amp=0.5):
+    T, H, W, hb, wb = shape[:5]
+    rng = np.random.default_rng(H * W + hb)
+    n = T + 1 if len(shape) > 5 else T
+    frames = torch.as_tensor(rng.integers(0, 256, (n, H, W, 3), np.uint8),
+                             device=cuda)[n - T:]
+    band = torch.as_tensor(rng.uniform(-amp, amp, (T, 3, hb, wb))
+                           .astype(np.float32), device=cuda)
+    return evm_cuda.to_planar(frames), band
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _K7_VEC_SHAPES)
+def test_k7_vector_matches_generic(cuda, shape):
+    """The vectorised instance equals the generic one bit for bit."""
+    planar, band = _k7_input(cuda, shape)
+    before = evm_recon_cuda.VEC_LAUNCHES
+    got = evm_recon_cuda.evm_reconstruct(planar, band)
+    assert evm_recon_cuda.VEC_LAUNCHES == before + 1
+    before = evm_recon_cuda.GENERIC_LAUNCHES
+    want = evm_recon_cuda.evm_reconstruct(planar, band, instance="generic")
+    assert evm_recon_cuda.GENERIC_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.stride() == planar.stride() or len(shape) > 5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amp", [0.04, 0.5])
+@pytest.mark.parametrize("shape", _K7_VEC_SHAPES[:4])
+def test_k7_vector_matches_plain(cuda, shape, amp):
+    planar, band = _k7_input(cuda, shape, amp)
+    got = evm_recon_cuda.evm_reconstruct(planar, band, instance="vector")
+    want = evm_recon_cuda.evm_reconstruct_plain(planar, band)
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _K7_VEC_SHAPES[:3])
+def test_k7_vector_same_bits_twice(cuda, shape):
+    planar, band = _k7_input(cuda, shape)
+    first = evm_recon_cuda.evm_reconstruct(planar, band, instance="vector")
+    again = evm_recon_cuda.evm_reconstruct(planar, band, instance="vector")
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+def test_k7_vector_refuses_other_layouts(cuda):
+    """Planar frames and a width of 1000 take the generic instance; asking
+    for the vectorised one raises."""
+    for shape in [(2, 40, 256, 3, 16), (2, 40, 1000, 3, 63)]:
+        planar, band = _k7_input(cuda, shape)
+        if shape[2] == 256:
+            planar = planar.contiguous()
+        before = evm_recon_cuda.GENERIC_LAUNCHES
+        evm_recon_cuda.evm_reconstruct(planar, band)
+        assert evm_recon_cuda.GENERIC_LAUNCHES == before + 1
+        with pytest.raises(ValueError):
+            evm_recon_cuda.evm_reconstruct(planar, band, instance="vector")
 
 
 def _k3_rois(rng, T, H, W):
