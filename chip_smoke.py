@@ -11,8 +11,11 @@ Phases, each of which must pass (any failure exits non-zero):
    seeded ``torch.Generator``: a skin ellipse on a dark background whose
    green channel pulses at 72 BPM, with a small sway and sensor noise;
 3. hold each kernel against its plain PyTorch version on the card: K2 and
-   K3 on the clip's cheek ROIs plus random, degenerate and negative-``y1``
-   ROIs (K3 also on rows padded to a wider pitch), K1 over its knobs
+   K3 (one source, ``csrc/roi_means.cu``) on the clip's cheek ROIs plus
+   random, degenerate and negative-``y1`` ROIs (K3 also on a stream's
+   256-frame chunk and on rows padded to a wider pitch; K2 later also on
+   the skin pool's 64 slots of 720p), each on the instance its plan takes
+   and on the generic one, equal bit for bit, K1 over its knobs
    (row pooling, detection cadence, gating, multi-stream ``seq_len``) on the
    clip, K4 on 64 slots of 720p frames with random carries (fresh, tracked,
    spent budgets, a cheek ROI across a row-chunk boundary, a ROI clipped at
@@ -104,7 +107,12 @@ Phases, each of which must pass (any failure exits non-zero):
 The launch counters are set to 0 just before each of the main paths (the
 offline measure, the two streams and the file measure, ``magnify``, the EVM
 measure, the MediaPipe measure, the fused pool, the skin pool, the server)
-and read just after.
+and read just after; K2's and K3's vectorised instance must have taken
+every launch of the offline run, the detect stream, the MediaPipe measure
+and the skin pool.  K2's record counts its launches on those paths
+(offline, MediaPipe, skin pool); its time is at 1080p x 960, and its time
+at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
+logged with their bounds.
 The line before the last is the kernels' JSON record: per kernel its time
 and its plain version's, and ``bound_ms``, the least time the card could
 take for the same work: the larger of the bytes it must move (inputs read
@@ -645,6 +653,7 @@ def run_streaming(dev, frames, cfg) -> dict:
             counter = "BATCHED_LAUNCHES" if form == "detect" else "LAUNCHES"
             mod = roi_means_cuda if form == "detect" else fused_cuda
             setattr(mod, counter, 0)
+            roi_means_cuda.VEC_LAUNCHES = 0
             ring = {}
             t0 = time.perf_counter()
             (bgr, valid, s_fps), s_peak = peak_of(
@@ -660,6 +669,10 @@ def run_streaming(dev, frames, cfg) -> dict:
             if launches < 1 or (form == "fused" and launches != n_chunks):
                 raise AssertionError(f"{form} stream: {name} launched "
                                      f"{launches} times")
+            if form == "detect" and roi_means_cuda.VEC_LAUNCHES != launches:
+                raise AssertionError(
+                    f"detect stream: {roi_means_cuda.VEC_LAUNCHES} of "
+                    f"{launches} K3 launches on the vectorised instance")
 
             def whole_pass():
                 x = torch.as_tensor(back).to(dev)
@@ -955,17 +968,20 @@ def run_mediapipe(dev, cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    mb.LAUNCHES = roi_means_cuda.LAUNCHES = 0
+    mb.LAUNCHES = roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
     _, bpm, valid = offline.measure_green_avg(frames, FPS, cfg, detector=det,
                                               use_pallas="roi")
     torch.cuda.synchronize()
-    launches = {"K5": mb.LAUNCHES, "K2": roi_means_cuda.LAUNCHES}
+    launches = {"K5": mb.LAUNCHES, "K2": roi_means_cuda.LAUNCHES,
+                "K2 vectorised": roi_means_cuda.VEC_LAUNCHES}
     peak = torch.cuda.max_memory_allocated() - base
     log(f"[mediapipe] kernel launches in the measure: {launches}; peak "
         f"device memory above the phase's {peak / 1e9:.3f} GB")
-    if min(launches.values()) < 1:
+    if min(launches.values()) < 1 or launches["K2 vectorised"] != \
+            launches["K2"]:
         raise AssertionError(f"a kernel of the MediaPipe measure never "
-                             f"launched: {launches}")
+                             f"launched, or K2 left the vectorised "
+                             f"instance: {launches}")
     trace = offline.extract_signals(frames, cfg, detector=det,
                                     use_pallas="roi")
     green = offline._fill_invalid(trace.bgr[:, cfg.channel], trace.valid)
@@ -1094,6 +1110,46 @@ def run_mediapipe(dev, cfg) -> dict:
     return dict(launches=launches, k5_err=k5_err, k5=k5, peak=peak,
                 m_ms=m_ms, d_ms=d_ms, split=split, mae_ref=mae_ref, mae_truth=mae_truth,
                 agree=agree, rms=rms, rms_crop=rms_crop)
+
+
+def check_roi_means(fn, tag: str, cases) -> float:
+    """K2's or K3's entry ``fn`` on each ``(name, frames, rois, kwargs)``
+    case, on the instance the plan takes and on the generic one: means and
+    counts equal to the plain version's bit for bit, each instance's launch
+    counter moved.  Returns the largest |difference| (0)."""
+    import torch
+    from vhr_tpu_torch.ops import roi_means_cuda as rm
+    from vhr_tpu_torch.ops.reduce import roi_channel_means
+
+    err = 0.0
+    for name, x, rois, kw in cases:
+        want = roi_channel_means(x, rois, **kw)
+        for instance in (None, "generic"):
+            counts = (rm.VEC_LAUNCHES, rm.GENERIC_LAUNCHES)
+            got = fn(x, rois, instance=instance, **kw)
+            torch.cuda.synchronize()
+            took = "vector" if rm.VEC_LAUNCHES > counts[0] else "generic"
+            if instance is not None and took != instance:
+                raise AssertionError(f"{tag} {name}: {instance} not launched")
+            err = max(err, compare(f"{tag} {name} ({took})", got, want))
+            same_bits(f"{tag} {name} ({took})", got, want)
+            log(f"[check] {tag} {took} instance == plain bit for bit on "
+                f"{name} ROIs, {tuple(x.shape)}")
+    return err
+
+
+def pool_rois(frames, cfg):
+    """The cheek ROIs the skin-detector pool tick gives K2 for these slot
+    frames (a tick in which every slot detects)."""
+    import torch
+    from vhr_tpu_torch.models import skin_detector
+    from vhr_tpu_torch.ops import roi
+
+    _, h, w, _ = frames.shape
+    boxes, ok = skin_detector.detect_faces(frames)
+    rois = roi.measurement_roi(boxes.to(torch.int32), cfg.roi, w, h,
+                               cfg.roi_site)
+    return torch.where(ok[:, None], rois, 0).to(torch.int32)
 
 
 def same_bits(name: str, got, want) -> None:
@@ -1364,35 +1420,24 @@ def main() -> int:
     rand_rois[:8] = torch.tensor([0, 0, 0, 0], device=dev)
     rand_rois[8:16] = torch.tensor([100, 200, 50, 300], device=dev)
     rand_rois[16:24] = torch.tensor([-50, -40, W + 50, H + 40], device=dev)
-    k2_err = 0.0
-    for name, rois_ in [("clip", clip_rois), ("random", rand_rois)]:
-        got = roi_means_cuda.roi_channel_means_cuda(frames, rois_)
-        want = roi_channel_means(frames, rois_)
-        torch.cuda.synchronize()
-        k2_err = max(k2_err, compare(f"K2 {name} rois", got, want))
-    log(f"[check] K2 == plain on clip and random/degenerate ROIs "
-        f"(max |err| {k2_err:.3g})")
-    # K3 also on rows padded to a wider pitch (a reader's staging buffer);
-    # its counts must be equal and its means are expected equal.
+    # K2 and K3 share csrc/roi_means.cu: each entry and each of its two
+    # instances (the vectorised one, which the plan takes for every aligned
+    # layout, and the generic one) must equal the plain version bit for bit.
+    k2_err = check_roi_means(roi_means_cuda.roi_channel_means_cuda, "K2", [
+        ("clip", frames, clip_rois, {}), ("random", frames, rand_rois, {})])
+    # K3 also on a stream's chunk and on rows padded to a wider pitch (a
+    # reader's staging buffer).
     padded = torch.randint(0, 256, (T, H, W * 3 + 64), generator=gen,
                            device=dev, dtype=torch.uint8)
     padded[..., :W * 3] = frames.reshape(T, H, W * 3)
-    k3_err = 0.0
-    for name, x, rois_, kw in [("clip", frames, clip_rois, {}),
-                               ("random", frames, rand_rois, {}),
-                               ("padded clip", padded, clip_rois,
-                                dict(width=W)),
-                               ("padded random", padded, rand_rois,
-                                dict(width=W))]:
-        got = roi_means_cuda.roi_channel_means_batched_cuda(x, rois_, **kw)
-        want = roi_channel_means(x, rois_, **kw)
-        torch.cuda.synchronize()
-        err = compare(f"K3 {name} rois", got, want)
-        if not torch.equal(got[1], want[1]):
-            raise AssertionError(f"K3 {name}: counts differ")
-        k3_err = max(k3_err, err)
-        log(f"[check] K3 == plain on {name} ROIs at {W}x{H} x {T}: counts "
-            f"equal, means max |err| {err:.3g}")
+    k3_err = check_roi_means(
+        roi_means_cuda.roi_channel_means_batched_cuda, "K3", [
+            ("clip", frames, clip_rois, {}),
+            ("random", frames, rand_rois, {}),
+            (f"chunk of {STREAM_CHUNK}", frames[:STREAM_CHUNK],
+             clip_rois[:STREAM_CHUNK], {}),
+            ("padded clip", padded, clip_rois, dict(width=W)),
+            ("padded random", padded, rand_rois, dict(width=W))])
     del padded
 
     k1_err = 0.0
@@ -1412,7 +1457,7 @@ def main() -> int:
 
     # 4. The offline measure at the flagship configuration, counters from 0.
     acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
-    roi_means_cuda.LAUNCHES = 0
+    roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
     fused_cuda.LAUNCHES = 0
 
     def fused_form():
@@ -1436,10 +1481,14 @@ def main() -> int:
                                             trace.valid),) + results["roi"]
     torch.cuda.synchronize()
     launches = {"K1": fused_cuda.LAUNCHES, "K2": roi_means_cuda.LAUNCHES}
-    log(f"[main] kernel launches in the offline run: {launches}")
+    log(f"[main] kernel launches in the offline run: {launches}, K2 on the "
+        f"vectorised instance {roi_means_cuda.VEC_LAUNCHES}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the offline path never launched: "
                              f"{launches}")
+    if roi_means_cuda.VEC_LAUNCHES != launches["K2"]:
+        raise AssertionError("K2 left the vectorised instance in the "
+                             "offline run")
     for form, (green, bpm, valid) in results.items():
         n_valid, expect = int(valid.sum()), T - acq + 1
         if n_valid < 0.95 * expect:
@@ -1497,16 +1546,21 @@ def main() -> int:
         f"K4={launches['K4']}")
     if launches["K4"] < 1:
         raise AssertionError("K4 never launched in the fused pool")
-    roi_means_cuda.LAUNCHES = 0
+    roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     skin_pool = run_pool(dev, use_fused=False)
     torch.cuda.synchronize()
     skin_k2 = roi_means_cuda.LAUNCHES
     log(f"[pool skin] {time.perf_counter() - t0:.1f} s; kernel launches "
-        f"K2={skin_k2} K4={fused_cuda.SLOT_LAUNCHES}")
-    if skin_k2 < 1:
-        raise AssertionError("K2 never launched in the skin-detector pool")
+        f"K2={skin_k2} (vectorised {roi_means_cuda.VEC_LAUNCHES}) "
+        f"K4={fused_cuda.SLOT_LAUNCHES}")
+    if skin_k2 < 1 or roi_means_cuda.VEC_LAUNCHES != skin_k2:
+        raise AssertionError("K2 never launched, or left the vectorised "
+                             "instance, in the skin-detector pool")
+    # K2's launches in the record: the offline run's, the MediaPipe
+    # measure's and the skin pool's.
+    launches["K2"] += mp_run["launches"]["K2"] + skin_k2
 
     # 9. The front-end, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
@@ -1563,6 +1617,22 @@ def main() -> int:
         f"ahead; {k2_paced:.4f}, {k3_paced:.4f} ms paced by the host; K3 on "
         f"a chunk of {STREAM_CHUNK} frames {k3_chunk:.4f} ms, the queue "
         f"filled ahead, bound {k3_chunk_bound:.4f} ms (bytes)")
+    # K2 as the skin-detector pool tick launches it: the pool's 64 slots of
+    # 720p and the cheek ROIs the tick takes from them.
+    from vhr_tpu_torch.pipeline.live import LiveConfig
+    pool_frames = skin_pool["frames"]
+    slot_rois = pool_rois(pool_frames, LiveConfig(fps=FPS))
+    k2_err = max(k2_err, check_roi_means(
+        roi_means_cuda.roi_channel_means_cuda, "K2",
+        [(f"the skin pool's {SLOTS} x {PW}x{PH} slots", pool_frames,
+          slot_rois, {})]))
+    k2_pool = cuda_ms(lambda: roi_means_cuda.roi_channel_means_cuda(
+        pool_frames, slot_rois), reps=5, inner=10, queue_ahead=True)
+    pool_bytes = roi_bytes(slot_rois, PH, PW)
+    k2_pool_bound = bound(pool_bytes + SLOTS * (16 + 16), pool_bytes)[0]
+    log(f"[time] K2 on the skin pool's {SLOTS} x {PW}x{PH} slots "
+        f"({pool_bytes / 1e6:.3f} MB of cheek ROIs): {k2_pool:.4f} ms, the "
+        f"queue filled ahead, bound {k2_pool_bound:.4f} ms (bytes)")
     slot_frames = fused_pool["frames"]
     state = fused_pool["pool"]._state
     carry = torch.cat([state.last_box, state.hold_budget[:, None],
@@ -1687,7 +1757,7 @@ def main() -> int:
          "pallas_fused.py:385", k1_err, k1_ms, k1_plain),
         ("roi_channel_means (K2)", "K2", "roi_means.cu", "pallas_roi.py:167",
          k2_err, k2_ms, k2_plain),
-        ("roi_channel_means_batched (K3)", "K3", "roi_means_batched.cu",
+        ("roi_channel_means_batched (K3)", "K3", "roi_means.cu",
          "pallas_roi.py:324", k3_err, k3_ms, k2_plain),
         ("fused_detect_roi_slots (K4)", "K4", "fused_slots.cu",
          "pallas_fused.py:479", k4_err, k4_ms, k4_plain),

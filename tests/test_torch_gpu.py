@@ -106,7 +106,8 @@ def test_k2_matches_plain(gpu_clip, flat):
     got = roi_means_cuda.roi_channel_means_cuda(x, rois)
     want = roi_channel_means(frames, rois)
     torch.cuda.synchronize()
-    _same(got, want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # A box whose cheek ROI (with ``_LONG_ROI``) runs from chunk 0 down into a
@@ -372,13 +373,33 @@ def _k3_check(frames, rois, **kw):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+_COUNTERS = {"vector": "VEC_LAUNCHES", "generic": "GENERIC_LAUNCHES"}
+
+
+def _instance_check(entry, instance, frames, rois, plain=None, **kw):
+    """One launch of the K2 (``entry="k2"``) or K3 entry on ``instance``:
+    its counter moves by one, and means and counts equal the plain
+    version's bit for bit."""
+    fn = (roi_means_cuda.roi_channel_means_cuda if entry == "k2"
+          else roi_means_cuda.roi_channel_means_batched_cuda)
+    counter = _COUNTERS[instance]
+    before = getattr(roi_means_cuda, counter)
+    got = fn(frames, rois, instance=instance, **kw)
+    assert getattr(roi_means_cuda, counter) == before + 1
+    want = plain if plain is not None else roi_channel_means(frames, rois,
+                                                             **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(16, 104, 128, 3), (13, 75, 130, 3),
                                    (9, 40, 37, 1), (5, 33, 21, 4),
                                    (6, 64, 1920, 3)])
 def test_k3_matches_plain(cuda, shape):
     """Shapes whose rows are 16-byte aligned and not, every channel count,
-    and ``T`` not a multiple of the 8-frame batch."""
+    and ``T`` not a multiple of the generic instance's 8-frame batch."""
     T, H, W, C = shape
     rng = np.random.default_rng(T * W)
     frames = torch.as_tensor(rng.integers(0, 256, shape, np.uint8),
@@ -409,19 +430,134 @@ def test_k3_padded_pitch_matches_plain(cuda, pad):
 
 
 @pytest.mark.gpu
-def test_k3_matches_k2_on_the_clip(gpu_clip):
-    """K3 and K2 on the synthetic clip's cheek-like ROIs, 4-D and flat."""
+@pytest.mark.parametrize("instance", ["vector", "generic"])
+def test_k3_matches_k2_on_the_clip(gpu_clip, instance):
+    """Each instance, through the K2 and the K3 entry, 4-D and flat, on
+    the synthetic clip's face boxes, against the plain version."""
     frames, boxes = gpu_clip
     T, H, W, _ = frames.shape
     rois = boxes.cuda()
-    a = roi_means_cuda.roi_channel_means_batched_cuda(frames, rois)
-    b = roi_means_cuda.roi_channel_means_cuda(frames, rois)
-    c = roi_means_cuda.roi_channel_means_batched_cuda(
-        frames.reshape(T, H, W * 3), rois)
+    want = roi_channel_means(frames, rois)
+    for entry in ("k2", "k3"):
+        for x in (frames, frames.reshape(T, H, W * 3)):
+            _instance_check(entry, instance, x, rois, want)
+
+
+@pytest.fixture(scope="module")
+def full_size():
+    """960 random 1080p frames and 64 of 720p, and their cheek-sized ROIs
+    beside random, degenerate and edge ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    out = {}
+    for name, (T, H, W) in {"1080p": (960, 1080, 1920),
+                            "720p": (64, 720, 1280)}.items():
+        frames = torch.randint(0, 256, (T, H, W, 3), generator=gen,
+                               device=cuda, dtype=torch.uint8)
+        rng = np.random.default_rng(T)
+        rois = _k3_rois(rng, T, H, W)
+        cheek = np.stack([rng.integers(W // 4, W // 3, T),
+                          rng.integers(H // 3, H // 2, T)], 1)
+        cheek = np.concatenate([cheek, cheek + [W // 3, H // 8]], 1)
+        rois[8::2] = cheek[8::2]
+        out[name] = (frames, torch.as_tensor(rois.astype(np.int32),
+                                             device=cuda))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["k2", "k3"])
+@pytest.mark.parametrize("instance", ["vector", "generic"])
+@pytest.mark.parametrize("size,T", [("1080p", 1), ("1080p", 3),
+                                    ("720p", 64), ("1080p", 256),
+                                    ("1080p", 960)])
+def test_k2_k3_instances_at_path_sizes(full_size, entry, instance, size, T):
+    """Both instances through both entries at the frame counts the paths
+    launch (the pool's 64 slots of 720p, a stream's 256-frame chunk, a
+    960-frame clip of 1080p) and at 1 and 3 frames: equal bit for bit."""
+    frames, rois = full_size[size]
+    _instance_check(entry, instance, frames[:T], rois[:T].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", ["vector", "generic"])
+@pytest.mark.parametrize("shape,pad", [((9, 40, 32, 1), 0),
+                                       ((5, 33, 20, 4), 0),
+                                       ((7, 48, 64, 2), 0),
+                                       ((13, 75, 130, 3), 10),
+                                       ((11, 37, 61, 3), 73),
+                                       ((6, 64, 1920, 3), 0)])
+def test_k2_k3_channels_and_pitches(cuda, instance, shape, pad):
+    """C = 1 to 4, odd widths in rows padded to an aligned pitch (both
+    instances take them through K3), strided frames; the K2 entry where
+    the frames are contiguous."""
+    T, H, W, C = shape
+    rng = np.random.default_rng(W * C + pad)
+    pitch = W * C + pad
+    buf = torch.as_tensor(rng.integers(0, 256, (2 * T, H, pitch), np.uint8),
+                          device=cuda)
+    rois = torch.as_tensor(_k3_rois(rng, T, H, W), device=cuda)
+    aligned = pitch % 16 == 0
+    if instance == "generic" or aligned:
+        _instance_check("k3", instance, buf[:T], rois, channels=C, width=W)
+        _instance_check("k3", instance, buf[::2], rois, channels=C, width=W)
+    if pad == 0 and (instance == "generic" or aligned):
+        _instance_check("k2", instance, buf[:T].reshape(T, H, W, C), rois)
+    if not aligned:
+        with pytest.raises(ValueError, match="aligned"):
+            roi_means_cuda.roi_channel_means_batched_cuda(
+                buf[:T], rois, channels=C, width=W, instance="vector")
+
+
+@pytest.mark.gpu
+def test_k2_k3_misaligned_base_takes_generic(cuda):
+    """A contiguous view whose base is off the 16-byte grid: the plan takes
+    the generic instance, and the sums are the plain version's."""
+    T, H, W = 6, 40, 64
+    buf = torch.randint(0, 256, (T * H * W * 3 + 1,), device=cuda,
+                        dtype=torch.uint8)
+    frames = buf[1:].view(T, H, W, 3)
+    rois = torch.as_tensor(_k3_rois(np.random.default_rng(1), T, H, W),
+                           device=cuda)
+    for entry in ("k2", "k3"):
+        _instance_check(entry, "generic", frames, rois)
+        before = roi_means_cuda.GENERIC_LAUNCHES
+        fn = (roi_means_cuda.roi_channel_means_cuda if entry == "k2"
+              else roi_means_cuda.roi_channel_means_batched_cuda)
+        fn(frames, rois)
+        assert roi_means_cuda.GENERIC_LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kw", [dict(row_block=64),
+                                dict(row_block=32, detect_every=3,
+                                     gate_margin=0.5)])
+def test_k1_roi_sums_bit_equal(gpu_clip, offset, kw):
+    """K1's third launch is the K2 entry with ``roi_ok``: its means and
+    counts equal the plain version's bit for bit (the plain version sums
+    the same ROIs exactly and zeroes the count of an invalid ROI), on the
+    vectorised instance and, from a base off the 16-byte grid, the
+    generic one."""
+    frames = gpu_clip[0]
+    T, H, W, _ = frames.shape
+    buf = torch.empty(frames.numel() + offset, dtype=torch.uint8,
+                      device=frames.device)
+    x = buf[offset:].view(T, H, W * 3)
+    x.copy_(frames.reshape(T, H, W * 3))
+    plan = roi_means_cuda.roi_plan(
+        T, H, W, 3, H * W * 3, W * 3, roi_means_cuda.alignment(x.data_ptr()),
+        roi_means_cuda.sm_count(0))
+    assert plan.instance == ("vector" if offset == 0 else "generic")
+    carry = fused_cuda.init_carry(frames.device)
+    got, got_c = fused_cuda.fused_detect_roi_carry(x, carry, **kw)
+    want, want_c = fused_cuda.fused_detect_roi_plain(x, carry, **kw)
     torch.cuda.synchronize()
-    for x, y, z in zip(a, b, c):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
-        torch.testing.assert_close(x, z, rtol=0, atol=0)
+    assert int(want.roi_valid.sum()) > 0
+    for g, w in zip(tuple(got) + (got_c,), tuple(want) + (want_c,)):
+        assert torch.equal(g, w)
 
 
 @pytest.fixture(scope="module")

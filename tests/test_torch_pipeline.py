@@ -12,6 +12,8 @@ Tolerances and why:
   between two near-equal bins.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,6 +163,47 @@ def test_measure_green_avg_matches_jax(synth_clip, jax_measures, use_pallas,
     np.testing.assert_array_equal(
         toffline.to_measurement_array(ts, bpm, valid),
         joffline.to_measurement_array(ts, bpm, valid))
+
+
+# Other ROI sites and frame rates than the flagship's 30 fps cheek: the
+# forehead ROI, and 24 and 15 fps clips (the windows, the acquisition and
+# the DFT bins scale with the rate).  Each JAX measure runs once per case.
+_SITE_RATES = [("forehead", 30.0), ("cheek", 24.0), ("cheek", 15.0)]
+
+
+@functools.cache
+def _site_rate_case(site, fps):
+    clip = synthesize(SynthSpec(duration_s=5.0, fps=fps, height=96,
+                                width=128, bpm=75.0, noise_std=1.0,
+                                dropout_frames=(30, 31)))
+    jcfg = jconfig.PipelineConfig(roi_site=site, **_CFG_ARGS)
+    frames = jnp.asarray(clip.frames)
+    return (clip.frames, joffline.extract_signals(frames, jcfg),
+            joffline.measure_green_avg(frames, fps, jcfg))
+
+
+@pytest.mark.parametrize("site,fps", _SITE_RATES)
+@pytest.mark.parametrize("use_pallas", [False, "roi"])
+def test_measure_green_avg_sites_and_rates_match_jax(site, fps, use_pallas):
+    """The plain and ``"roi"`` forms on the forehead site and at 24 and 15
+    fps against ``vhr_tpu``'s XLA form, as the 30 fps cheek case above."""
+    clip, jtrace, (jts, jbpm, jvalid) = _site_rate_case(site, fps)
+    cfg = PipelineConfig(roi_site=site, **_CFG_ARGS)
+    frames = torch.as_tensor(clip)
+    trace = toffline.extract_signals(frames, cfg, use_pallas=use_pallas)
+    np.testing.assert_array_equal(trace.valid.numpy(),
+                                  np.asarray(jtrace.valid))
+    np.testing.assert_array_equal(trace.rois.numpy(), np.asarray(jtrace.rois))
+    np.testing.assert_allclose(trace.bgr.numpy(), np.asarray(jtrace.bgr),
+                               **MEANS_TOL)
+    ts, bpm, valid = toffline.measure_green_avg(frames, fps, cfg,
+                                                use_pallas=use_pallas)
+    np.testing.assert_array_equal(ts, jts)
+    np.testing.assert_array_equal(valid, jvalid)
+    assert valid.sum() > 0.5 * len(valid)
+    bins = 60.0 * fps / np.minimum(np.arange(len(bpm)) + 1,
+                                   cfg.window_len(fps))
+    _assert_bpm_close(bpm, jbpm, valid, bins)
 
 
 @pytest.mark.parametrize("use_pallas", [False, "fused"])

@@ -37,7 +37,8 @@
 //      writes boxes, flags and the frame's ROI (from the pre-update box,
 //      floor/ceil in float32, no clipping).
 //   3. vhr_roi_means_u8 (K2, roi_means.cu) on those ROIs, with count set to
-//      0 where the ROI is not valid.
+//      0 where the ROI is not valid, launched as the host's plan for it
+//      says (ops/roi_means_cuda.py::roi_plan).
 //
 // The chroma test and the chunk pass are in skin_chunk.cuh, shared with K4
 // (fused_slots.cu).
@@ -47,7 +48,8 @@
 extern "C" int vhr_roi_means_u8(const uint8_t* frames, const int32_t* rois,
                                 const int32_t* roi_ok, int ok_stride,
                                 float* means, float* count,
-                                int T, int H, int W, int C,
+                                int T, int H, int W, int C, int instance,
+                                int bands, int threads, int grid,
                                 cudaStream_t stream);
 
 namespace {
@@ -252,13 +254,15 @@ track_kernel(const int32_t* __restrict__ colcnt,
 // (t_len, 5) int32.
 // Outputs: rois, boxes (t_len, 4) int32; flags (t_len, 2) int32
 // [det_valid, roi_valid]; means (t_len, 3) f32; count (t_len,) f32;
-// carry_out (6,) int32.
+// carry_out (6,) int32.  roi_instance, roi_bands, roi_threads and roi_grid
+// are K2's launch plan for the t_len frames.
 extern "C" int vhr_fused_detect_roi(
     const uint8_t* frames, int t_start, int t_len, int phase0, int H, int W,
     int rb, int n_chunks, int pool, int detect_every, int seq_len, int gated,
     float gate_margin, int rescan_every, float min_area, float cb_min,
     float cb_max, float cr_min, float cr_max, float y_min, float cheek_h,
-    float cheek_top, float cheek_bot, int hold, const int32_t* carry_in,
+    float cheek_top, float cheek_bot, int hold, int roi_instance,
+    int roi_bands, int roi_threads, int roi_grid, const int32_t* carry_in,
     int32_t* carry_out, int32_t* colcnt, int32_t* stats, int32_t* full,
     int32_t* rois,
     int32_t* boxes, int32_t* flags, float* means, float* count,
@@ -289,5 +293,6 @@ extern "C" int vhr_fused_detect_roi(
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   return vhr_roi_means_u8(first, rois, flags + 1, 2, means, count, t_len, H,
-                          W, 3, stream);
+                          W, 3, roi_instance, roi_bands, roi_threads,
+                          roi_grid, stream);
 }

@@ -26,6 +26,7 @@ from .. import _build
 from ..config import ROIConfig
 from ..models.skin_detector import SkinDetectorConfig, ycbcr_from_bgr
 from .reduce import roi_channel_means
+from .roi_means_cuda import INSTANCES, alignment, roi_plan, sm_count
 
 __all__ = ["FusedResult", "init_carry", "fused_detect_roi_carry",
            "fused_detect_roi_cuda", "fused_detect_roi_plain",
@@ -292,6 +293,11 @@ def fused_detect_roi_carry(frames: torch.Tensor, carry: torch.Tensor,
         i32(t_len, 2), i32(6)
     means = torch.empty((t_len, 3), dtype=torch.float32, device=dev)
     count = torch.empty((t_len,), dtype=torch.float32, device=dev)
+    # The ROI sums are K2's launch on the t_len frames from t_start.
+    pitch = g.W * 3
+    plan = roi_plan(t_len, g.H, g.W, 3, g.H * pitch, pitch,
+                    alignment(frames.data_ptr() + t_start * g.H * pitch),
+                    sm_count(dev.index or 0))
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     global LAUNCHES
@@ -303,7 +309,9 @@ def fused_detect_roi_carry(frames: torch.Tensor, carry: torch.Tensor,
         0.0 if gate_margin is None else gate_margin, rescan_every,
         float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
         det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
-        roi.landmark_hold_frames, carry.data_ptr(), carry_out.data_ptr(),
+        roi.landmark_hold_frames, INSTANCES.index(plan.instance),
+        plan.bands, plan.threads, plan.grid, carry.data_ptr(),
+        carry_out.data_ptr(),
         colcnt.data_ptr(), stats.data_ptr(), full.data_ptr(), rois.data_ptr(),
         boxes.data_ptr(), flags.data_ptr(), means.data_ptr(),
         count.data_ptr(), stream)
