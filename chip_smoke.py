@@ -28,7 +28,23 @@ Phases, each of which must pass (any failure exits non-zero):
    every kernel launched, >= 95% of post-acquisition frames valid, and the
    BPM within 0.5 BPM (MAE) of the frame-at-a-time numpy reference run on
    the port's own green trace;
-5. streaming ingest from a file: the flagship clip written to an MJPG
+5. the other offline measures at the same configuration, each in the
+   fused form (K1) and the ``"roi"`` form (K2), a launch in every call:
+   ``measure_projection`` for CHROM, POS and OMIT, ``measure_adaptive``,
+   ``measure_ica``, ``measure_app_welch`` and ``measure_green_avg`` with
+   ``estimator="welch"``.  Each must have >= 95% of the frames from its
+   first estimate on valid (the acquisition's end for the FFT measures,
+   the full window for the Welch ones; >= 90% from ``ICAConfig``'s
+   acquisition for ICA) and the median BPM over valid steady frames within
+   3 BPM of the truth (6 for ICA).  Each measure's trace is copied to the
+   CPU and the same port DSP run there: BPM equal on >= 99% of the
+   frames valid on both, validity and the adaptive choice equal (ICA's
+   validity on >= 97% of frames: its float32 convergence test decides
+   windows that hover at ``tol`` by the last bits of cuSOLVER's and
+   LAPACK's results); a second call on the card gives the same bits.  Times: the whole measure and the DSP after
+   the trace by events, the DSP's device operations and busy time under
+   the profiler, and the app loop's zero-phase filter on its own;
+6. streaming ingest from a file: the flagship clip written to an MJPG
    ``.avi`` with the port's ``write_video`` and read back whole with
    ``read_video``; ``extract_signals_streaming`` at ``chunk_frames=256`` (4
    chunks, the last 192 frames) in the detect-then-reduce form (ROI means
@@ -39,7 +55,7 @@ Phases, each of which must pass (any failure exits non-zero):
    reference on its green trace.  Prints frames/s from the file (decode
    included), the decode-or-device verdict and the peak device memory of
    the streaming and whole-clip calls;
-6. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
+7. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
    decimate, YIQ) and K7 (upsample, add, u8 reconstruction) against their
    plain versions on the flagship clip's first 64 frames and on a 720p
    slice of them (K6 also at a width of 1000 and at 1917x1079; K7 on the
@@ -56,7 +72,7 @@ Phases, each of which must pass (any failure exits non-zero):
    flagship clip: K6 launched, >= 95% of post-acquisition frames valid, BPM
    MAE at most 4 against the 72 BPM truth, and at T=64 the kernel route's
    pulse trace within ``rtol=1e-3, atol=1e-6`` of the plain route's;
-7. the production MediaPipe detector (the bundled BlazeFace and 478-point
+8. the production MediaPipe detector (the bundled BlazeFace and 478-point
    mesh nets, uncut) on a 1080p, T=960 clip of the schematic face of
    ``tests/test_mediapipe_face.py`` drawn 4.2x its size with cv2, swaying
    3 px, a 72 BPM green pulse on its skin ellipse and 0-7 u8 noise, made on
@@ -79,7 +95,7 @@ Phases, each of which must pass (any failure exits non-zero):
    and detection alone, fused and unfused, the card's busy share in one
    profiled run of the fused measure; K5 per stage, its plain version and
    the same 25 ops unfused (cuDNN, op by op);
-8. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+9. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
    use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
    at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
    and sway phase; slots attach in a staggered order, one slot skips every
@@ -88,29 +104,36 @@ Phases, each of which must pass (any failure exits non-zero):
    equal the single-stream fused live step on the same frames; a slot whose
    ring is full must report the ``scipy.signal.welch`` peak of its last 500
    filtered samples.  Then the same population through the skin-detector
-   tick (``use_fused=False``, ROI means on K2);
-9. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+   tick (``use_fused=False``, ROI means on K2), and through the fused tick
+   with ``method="adaptive"``: K4 launched, every slot valid within 8 BPM,
+   the two slots' BPM, validity and choice equal to the single step's on
+   >= 99% of ticks, and every slot's last BPM, validity and choice equal to
+   the port's method on the CPU from the pool's rings;
+10. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
    of the truth; then 10 one-frame round trips each.  K4 is then launched
    twice more on the fused pool's last frames and state and must give the
    same bits both times (each launch leaves its accumulators clean);
-10. time each pool tick (device time, and wall time with the host-to-card
+11. time each pool tick (device time, and wall time with the host-to-card
    upload and the fetch) and each kernel against its plain version, with
    CUDA events (median of 3 after a warm-up; K4 with the card kept busy
    while the host enqueues its calls, also with row pooling and with
    gating, and the kernels ``torch.profiler`` sees in 20 calls of
    each, which must be one a call); both offline forms are timed
    right after phase 4, the fused one again at the end, and the EVM path
-   right after phase 5.
+   right after phase 7.
 
 The launch counters are set to 0 just before each of the main paths (the
-offline measure, the two streams and the file measure, ``magnify``, the EVM
-measure, the MediaPipe measure, the fused pool, the skin pool, the server)
+offline measure, each call of the other measures, the two streams and the
+file measure, ``magnify``, the EVM measure, the MediaPipe measure, the
+fused pool, the skin pool, the adaptive pool, the server)
 and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
-and the skin pool.  K2's record counts its launches on those paths
-(offline, MediaPipe, skin pool); its time is at 1080p x 960, and its time
+and the skin pool.  The record's launches: K1's in the offline run and the
+other measures' fused calls, K2's in the offline run, the other measures'
+``"roi"`` calls, the MediaPipe measure and the skin pool, K4's in the fused
+and the adaptive pool.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
 logged with their bounds.
 The line before the last is the kernels' JSON record: per kernel its time
@@ -608,6 +631,176 @@ def run_evm(dev, frames) -> dict:
                 k6_plain=times["K6"][1], k7_ms=times["K7"][0],
                 k7_plain=times["K7"][1], k6_bytes=times["K6"][2],
                 k7_bytes=times["K7"][2], n=n)
+
+
+def run_measures(dev, frames, cfg) -> dict:
+    """The offline measures beyond the green FFT on the flagship clip: the
+    projections, the adaptive selector, FastICA, the app's filtered Welch
+    loop and the green measure with the Welch estimator, each in the fused
+    form (K1) and the ``"roi"`` form (K2), counters from 0 before each
+    call.  Each measure's trace is copied to the CPU and the same port DSP
+    run there; each measure runs twice on the card.  Returns the launches
+    of K1 (fused calls) and K2 (``"roi"`` calls) in the checked calls."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.config import ICAConfig
+    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+    from vhr_tpu_torch.ops import windows as vwin
+    from vhr_tpu_torch.pipeline import offline
+
+    ica = ICAConfig()
+    welch = dataclasses.replace(cfg, estimator="welch")
+    acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
+    ica_acq = int(ica.acquisition_seconds * FPS)
+    ica_win = int(ica.window_seconds * FPS)
+
+    def adaptive(b, v):
+        bpm, ok, choice, _ = offline.adaptive_pulse_select(b, v, FPS, cfg)
+        return bpm, ok & v, choice
+
+    def proj(m):
+        return lambda b, v: offline._projection_bpm(b, v, FPS, cfg, m)
+
+    def spec(dsp, measure, first, steady, floor=0.95, tol=3.0,
+             valid_same=1.0):
+        """A measure: the DSP after the trace, the entry point, its first
+        estimating and first steady frame, its validity floor from the
+        first, its BPM bound, and the share of frames on which the card's
+        validity must equal the CPU's."""
+        return dict(dsp=dsp, measure=measure, first=first, steady=steady,
+                    floor=floor, tol=tol, valid_same=valid_same)
+
+    # FastICA's float32 convergence test: where it hovers at ``tol`` (the
+    # clip's B and R channels are two noise sources of one distribution,
+    # which FastICA cannot separate), the last bits of cuSOLVER's and
+    # LAPACK's results decide whether a window converges within max_iter,
+    # so the card's validity equals the CPU's on most frames, not all.
+    specs = {
+        "chrom": spec(proj("chrom"), lambda x, f: offline.measure_projection(
+            x, FPS, "chrom", cfg, use_pallas=f), acq - 1, win - 1),
+        "pos": spec(proj("pos"), lambda x, f: offline.measure_projection(
+            x, FPS, "pos", cfg, use_pallas=f), acq - 1, win - 1),
+        "omit": spec(proj("omit"), lambda x, f: offline.measure_projection(
+            x, FPS, "omit", cfg, use_pallas=f), acq - 1, win - 1),
+        "adaptive": spec(adaptive, lambda x, f: offline.measure_adaptive(
+            x, FPS, cfg, use_pallas=f), acq - 1, win - 1),
+        "ica": spec(lambda b, v: offline._ica_bpm(b, v, FPS, cfg, ica),
+                    lambda x, f: offline.measure_ica(x, FPS, cfg, ica,
+                                                     use_pallas=f),
+                    ica_acq - 1, ica_win - 1, floor=0.90, tol=6.0,
+                    valid_same=0.97),
+        "app_welch": spec(lambda b, v: offline._app_welch_bpm(b, v, FPS,
+                                                              cfg),
+                          lambda x, f: offline.measure_app_welch(
+                              x, FPS, cfg, use_pallas=f), win, win),
+        "green_welch": spec(lambda b, v: offline._green_bpm(b, v, FPS,
+                                                            welch),
+                            lambda x, f: offline.measure_green_avg(
+                                x, FPS, welch, use_pallas=f),
+                            win - 1, win - 1)}
+
+    def host(res):
+        """A measure's result as numpy ``(bpm, valid[, choice])``."""
+        if isinstance(res, offline.AdaptiveResult):
+            return res.bpm, res.valid, res.choice
+        return res[1:]
+
+    def dsp_host(res):
+        """A DSP's tensors as numpy."""
+        return tuple(r.cpu().numpy() for r in res)
+
+    traces = {}
+    for form in (True, "roi"):
+        tr = offline.extract_signals(frames, cfg, use_pallas=form)
+        traces[form] = (tr.bgr, tr.valid)
+    launches = {"K1": 0, "K2": 0}
+    for name, sp in specs.items():
+        dsp, measure, first, steady = (sp[k] for k in ("dsp", "measure",
+                                                       "first", "steady"))
+        for form, tag in ((True, "fused"), ("roi", "roi")):
+            t_form = time.perf_counter()
+            fused_cuda.LAUNCHES = 0
+            roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
+            got = host(measure(frames, form))
+            torch.cuda.synchronize()
+            launched = (fused_cuda.LAUNCHES if form is True
+                        else roi_means_cuda.LAUNCHES)
+            if launched < 1 or (form == "roi" and roi_means_cuda.VEC_LAUNCHES
+                                != launched):
+                raise AssertionError(f"{name} {tag}: its kernel launched "
+                                     f"{launched} times")
+            launches["K1" if form is True else "K2"] += launched
+            again = host(measure(frames, form))
+            for a, b in zip(got, again):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name} {tag}: two card calls "
+                                         f"differ")
+            bpm, valid = got[0], got[1]
+            n_valid, expect = int(valid[first:].sum()), T - first
+            share = n_valid / expect
+            med = float(np.median(bpm[steady:][valid[steady:]])) \
+                if valid[steady:].any() else math.nan
+            if share < sp["floor"] or not abs(med - TRUTH_BPM) <= sp["tol"] \
+                    or not np.isfinite(bpm).all():
+                raise AssertionError(
+                    f"{name} {tag}: valid {n_valid}/{expect}, steady median "
+                    f"BPM {med}")
+            # The same DSP on the CPU, from the card's trace.
+            b_cpu, v_cpu = (x.cpu() for x in traces[form])
+            cpu = dsp_host(dsp(b_cpu, v_cpu))
+            card = dsp_host(dsp(*traces[form]))
+            for a, b in zip(card, got):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name} {tag}: the DSP on the "
+                                         f"trace differs from the measure")
+            both = valid & cpu[1]
+            same = float((cpu[0][both] == bpm[both]).mean())
+            v_same = float((cpu[1] == valid).mean())
+            if v_same < sp["valid_same"] or same < 0.99 or (
+                    len(cpu) > 2 and not np.array_equal(cpu[2], got[2])):
+                raise AssertionError(
+                    f"{name} {tag}: card against CPU: validity equal on "
+                    f"{v_same:.4f} of frames, BPM equal on {same:.4f} of "
+                    f"valid frames")
+            extra = ""
+            if len(got) > 2:
+                counts = np.bincount(got[2][valid], minlength=4).tolist()
+                extra = f"; choice counts over valid frames {counts}"
+            log(f"[measures] {name} {tag} (launches {launched}): valid "
+                f"{n_valid}/{expect} ({share:.4f}) from frame {first}; "
+                f"steady median BPM {med:.3f}; card == CPU: BPM on "
+                f"{same:.4f} of valid frames, validity on {v_same:.4f} of "
+                f"frames; two card calls equal bit for bit{extra}; checks "
+                f"in {time.perf_counter() - t_form:.1f} s")
+        bgr, valid = traces[True]
+        ms = cuda_ms(lambda: host(measure(frames, True)))
+        dsp_ms = cuda_ms(lambda: dsp_host(dsp(bgr, valid)))
+        busy, top = device_profile(lambda: dsp(bgr, valid), top=10 ** 6)
+        log(f"[time] measure {name} (fused form, {W}x{H} x {T}): "
+            f"{ms:.3f} ms by events; the DSP after the trace {dsp_ms:.3f} "
+            f"ms; under the profiler {sum(n for _, _, n in top)} device "
+            f"operations, the card busy "
+            + (f"{busy:.3f} ms, a busy share of {busy / dsp_ms:.3f} "
+               f"of the DSP's time by events" if busy is not None
+               else "not traced")
+            + "; top: " + ", ".join(f"{k[:40]} {ms_:.3f} ms x{n}"
+                                    for k, ms_, n in top[:4]))
+    # The app loop's filter stage on its own: the zero-phase band-pass of
+    # the 60 windows, a loop of single steps over 930 samples each way.
+    bgr, valid = traces[True]
+    green = offline._fill_invalid(bgr[:, cfg.channel], valid)
+    wins = vwin.sliding_windows(green, win)[1:]
+    wins = wins - wins.mean(-1, keepdim=True)
+    filt_ms = cuda_ms(lambda: offline._app_filter(wins, FPS, cfg))
+    busy, top = device_profile(lambda: offline._app_filter(wins, FPS, cfg),
+                               top=10 ** 6)
+    log(f"[time] the app loop's sosfiltfilt over {tuple(wins.shape)} "
+        f"windows: {filt_ms:.3f} ms by events, "
+        f"{sum(n for _, _, n in top)} device operations, the card busy "
+        f"{busy if busy is None else round(busy, 3)} ms")
+    return launches
 
 
 def run_streaming(dev, frames, cfg) -> dict:
@@ -1225,18 +1418,19 @@ def check_k4(dev) -> float:
     return err
 
 
-def run_pool(dev, use_fused: bool) -> dict:
+def run_pool(dev, use_fused: bool, method: str = "green") -> dict:
     """Drive a 64-slot pool of 720p subjects through TICKS ticks; check
     every slot's BPM against its truth, two slots against the single-stream
-    live step, and full rings against scipy's Welch.  Returns the pool,
-    every slot's next frame (on the card) and the BPM errors."""
+    live step, and full rings against scipy's Welch (``"green"``) or
+    against the port's method on the CPU from the same rings.  Returns the
+    pool, every slot's next frame (on the card) and the BPM errors."""
     import numpy as np
     import scipy.signal
     import torch
     from vhr_tpu_torch import serving
     from vhr_tpu_torch.pipeline import live
 
-    cfg = live.LiveConfig(fps=FPS, use_fused=use_fused)
+    cfg = live.LiveConfig(fps=FPS, use_fused=use_fused, method=method)
     pool = serving.BpmServer(cfg, n_slots=SLOTS)
     subj = Subjects(dev, SLOTS, PH, PW, SEED + 4)
     # Eight groups of slots attach 4 ticks apart (slots fill in order).
@@ -1247,6 +1441,7 @@ def run_pool(dev, use_fused: bool) -> dict:
     local = [0] * SLOTS                   # frames each client has sent
     hist = {s: [] for s in range(SLOTS)}  # (filtered, face_valid) per frame
     last = {}
+    agree = [0, 0]            # ticks whose BPM and choice equal the step's
     for t in range(TICKS):
         for s in range(SLOTS):
             if t == attach_at[s] and pool.attach() != s:
@@ -1274,31 +1469,63 @@ def run_pool(dev, use_fused: bool) -> dict:
                 if not same:
                     raise AssertionError(
                         f"slot {s} tick {t}: pool {o} != single step {ref}")
+                if bool(ref.bpm_valid) or bool(o.bpm_valid):
+                    agree[1] += 1
+                    agree[0] += (bool(ref.bpm_valid) == bool(o.bpm_valid)
+                                 and float(ref.bpm) == float(o.bpm)
+                                 and int(ref.choice) == int(o.choice))
     truth = subj.bpm.tolist()
     errs = [abs(float(last[s].bpm) - truth[s]) for s in range(SLOTS)]
     valid = [bool(last[s].bpm_valid) for s in range(SLOTS)]
     if not all(valid) or max(errs) > BPM_TOL:
         raise AssertionError(f"pool BPM: valid {valid}, |err| {errs}")
-    count = pool.snapshot()["state.count"]
+    if method != "green" and agree[0] < 0.99 * agree[1]:
+        raise AssertionError(f"slots {chosen}: BPM, validity and choice "
+                             f"equal the single step on {agree[0]} of "
+                             f"{agree[1]} ticks")
+    snap = pool.snapshot()
+    count = snap["state.count"]
     full = [s for s in range(SLOTS) if count[s] >= cfg.ring_len]
     if not full:
         raise AssertionError("no slot filled its ring")
-    band = (cfg.band.low_hz, cfg.band.high_hz)
-    nper = int(cfg.fps * cfg.welch_segment_seconds)
-    for s in full:
-        x = np.array([f for f, v in hist[s] if v][-cfg.ring_len:])
-        f, p = scipy.signal.welch(x, fs=cfg.fps, window="hann",
-                                  nperseg=nper, noverlap=nper // 2)
-        inb = (f >= band[0]) & (f <= band[1])
-        ref = float(f[inb][np.argmax(p[inb])] * 60.0)
-        if abs(float(last[s].bpm) - ref) >= 1e-3:
-            raise AssertionError(f"slot {s}: pool BPM {float(last[s].bpm)} "
-                                 f"!= scipy welch {ref}")
-    form = "fused" if use_fused else "skin"
+    form = ("fused" if use_fused else "skin") + (
+        "" if method == "green" else f" {method}")
+    if method == "green":
+        band = (cfg.band.low_hz, cfg.band.high_hz)
+        nper = int(cfg.fps * cfg.welch_segment_seconds)
+        for s in full:
+            x = np.array([f for f, v in hist[s] if v][-cfg.ring_len:])
+            f, p = scipy.signal.welch(x, fs=cfg.fps, window="hann",
+                                      nperseg=nper, noverlap=nper // 2)
+            inb = (f >= band[0]) & (f <= band[1])
+            ref = float(f[inb][np.argmax(p[inb])] * 60.0)
+            if abs(float(last[s].bpm) - ref) >= 1e-3:
+                raise AssertionError(f"slot {s}: pool BPM "
+                                     f"{float(last[s].bpm)} != scipy welch "
+                                     f"{ref}")
+        ring_check = "full rings == scipy welch peak"
+    else:
+        # The same rings through the port's method on the CPU.
+        rings = [torch.as_tensor(snap[f"state.{k}"]) for k in
+                 ("ring_raw", "ring_bgr", "ring_filt", "count")]
+        bpm, ok, choice = live._method_bpm(cfg, *rings)
+        got = np.array([[float(last[s].bpm), bool(last[s].bpm_valid),
+                         int(last[s].choice)] for s in range(SLOTS)])
+        want = np.stack([bpm.numpy(), ok.numpy(), choice.numpy()], 1)
+        same = (got == want).all(1)
+        if same.mean() < 0.99:
+            raise AssertionError(f"{method} pool: card against CPU equal "
+                                 f"on {int(same.sum())} of {SLOTS} slots")
+        picked = np.bincount(got[:, 2].astype(int),
+                             minlength=len(cfg.adaptive_methods)).tolist()
+        ring_check = (f"the rings' BPM, validity and choice on the CPU == "
+                      f"the card's on {int(same.sum())}/{SLOTS} slots; "
+                      f"last ticks' choices {picked}")
     log(f"[pool {form}] {SLOTS} slots x {TICKS} ticks at {PW}x{PH}: all "
         f"bpm_valid, |BPM - truth| max {max(errs):.3f} mean "
         f"{statistics.mean(errs):.3f}; slots {list(chosen)} == single "
-        f"step; {len(full)} full rings == scipy welch peak")
+        f"step (BPM, validity and choice on {agree[0]}/{agree[1]} ticks); "
+        f"{len(full)} {ring_check}")
     return dict(pool=pool, frames=subj.frames(range(SLOTS), local),
                 errs=errs)
 
@@ -1515,13 +1742,22 @@ def main() -> int:
         log(f"[time] {form} form end to end: {t_ms:.3f} ms / {T} frames = "
             f"{T / (t_ms / 1e3):.1f} frames/s, {t_ms * 1e3 / T:.3f} us/frame")
 
-    # 5. Streaming ingest from a file, counters from 0 before each form.
+    # 5. The other offline measures, both forms, counters from 0 before
+    # each call.
+    t0 = time.perf_counter()
+    measures = run_measures(dev, frames, cfg)
+    log(f"[measures] phase in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches in the measures' checked calls {measures}")
+    for k, n in measures.items():
+        launches[k] += n
+
+    # 6. Streaming ingest from a file, counters from 0 before each form.
     t0 = time.perf_counter()
     stream = run_streaming(dev, frames, cfg)
     log(f"[stream] phase in {time.perf_counter() - t0:.1f} s")
     launches["K3"] = stream["detect"]["launches"]
 
-    # 6. The EVM path: kernels against plain, magnify, the EVM measure.
+    # 7. The EVM path: kernels against plain, magnify, the EVM measure.
     evm_checks = check_evm_kernels(dev, frames)
     t0 = time.perf_counter()
     evm_run = run_evm(dev, frames)
@@ -1530,13 +1766,14 @@ def main() -> int:
         + evm_run["launches"]["K6 measure"]
     launches["K7"] = evm_run["launches"]["K7"]
 
-    # 7. The MediaPipe detector (K5, K2), counters from 0 before its measure.
+    # 8. The MediaPipe detector (K5, K2), counters from 0 before its measure.
     t0 = time.perf_counter()
     mp_run = run_mediapipe(dev, cfg)
     log(f"[mediapipe] phase in {time.perf_counter() - t0:.1f} s")
     launches["K5"] = mp_run["launches"]["K5"]
 
-    # 8. The serving pool, fused then skin-detector ticks, counters from 0.
+    # 9. The serving pool, fused then skin-detector ticks, then the fused
+    # tick under the adaptive method, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True)
@@ -1558,18 +1795,28 @@ def main() -> int:
     if skin_k2 < 1 or roi_means_cuda.VEC_LAUNCHES != skin_k2:
         raise AssertionError("K2 never launched, or left the vectorised "
                              "instance, in the skin-detector pool")
+    fused_cuda.SLOT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    run_pool(dev, use_fused=True, method="adaptive")
+    torch.cuda.synchronize()
+    adaptive_k4 = fused_cuda.SLOT_LAUNCHES
+    log(f"[pool fused adaptive] {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches K4={adaptive_k4}")
+    if adaptive_k4 < 1:
+        raise AssertionError("K4 never launched in the adaptive pool")
+    launches["K4"] += adaptive_k4
     # K2's launches in the record: the offline run's, the MediaPipe
     # measure's and the skin pool's.
     launches["K2"] += mp_run["launches"]["K2"] + skin_k2
 
-    # 9. The front-end, counters from 0.
+    # 10. The front-end, counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     served = run_server(dev)
     log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
     if fused_cuda.SLOT_LAUNCHES < 1:
         raise AssertionError("K4 never launched behind the server")
 
-    # 10. Timing (CUDA events; frames resident on the card unless stated).
+    # 11. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)

@@ -17,6 +17,7 @@ from vhr_tpu.models import mediapipe_face as jmp
 from vhr_tpu.models import tflite_exec as jexec
 from vhr_tpu.ops import pallas_meshblocks as jmb
 from vhr_tpu.models.skin_detector import SkinDetectorConfig as JaxSkinConfig
+from vhr_tpu.utils import synth as jsynth
 from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
 import vhr_tpu_torch
@@ -28,6 +29,7 @@ from vhr_tpu_torch.models import tflite_exec as texec
 from vhr_tpu_torch.models.skin_detector import SkinDetectorConfig
 from vhr_tpu_torch.ops import meshblocks_cuda as tmb
 from vhr_tpu_torch.pipeline import offline
+from vhr_tpu_torch.utils import synth
 from vhr_tpu_torch.validation import cpu_reference_green_avg
 
 REPO = Path(__file__).resolve().parent.parent
@@ -52,7 +54,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, check=True)
     n, has_jax, has_torch, n_ref = out.stdout.split()
-    assert int(n) >= 26
+    assert int(n) >= 30
     assert has_jax == "False" and has_torch == "True"
     assert n_ref == "0"
 
@@ -207,6 +209,23 @@ def test_design_equals_jax(kind, fps):
     np.testing.assert_array_equal(design.sosfilt_zi(got),
                                   jdesign.sosfilt_zi(want))
     assert design.sosfiltfilt_padlen(got) == jdesign.sosfiltfilt_padlen(want)
+
+
+def test_synth_copy_equals_jax_package():
+    """The port's ``utils/synth.py`` is the JAX package's line for line
+    below its docstring, and makes the same clips."""
+    def body(mod):
+        text = Path(mod.__file__).read_text()
+        return text[text.index("from __future__"):].splitlines()
+
+    assert body(synth) == body(jsynth)
+    spec = dict(duration_s=1.0, height=24, width=32, motion_amplitude=1.0,
+                dropout_frames=(3,), flicker_bpm=120.0, flicker_amp=0.1)
+    ours, ref = synth.synthesize(synth.SynthSpec(**spec)), \
+        jsynth.synthesize(jsynth.SynthSpec(**spec))
+    for f in dataclasses.fields(ref):
+        np.testing.assert_array_equal(getattr(ours, f.name),
+                                      getattr(ref, f.name), err_msg=f.name)
 
 
 def test_cpu_reference_equals_jax_package():

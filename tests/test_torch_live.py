@@ -6,7 +6,9 @@ the CPU, the fused kernel in interpret mode) and the port's.  Tolerances:
 - streaming SOS push and the live step's outputs: equal (the port rounds
   each float32 operation as XLA:CPU does under ``jit``);
 - masked Welch: same peak bin and validity, mean PSD within ``rtol=1e-4``
-  (float32 matmul sums in another order).
+  (float32 matmul sums in another order);
+- the projection methods and the adaptive selector: every tick's BPM,
+  validity and ``choice`` equal.
 """
 
 import dataclasses
@@ -23,7 +25,7 @@ from vhr_tpu.pipeline import live as jlive
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch import interop
-from vhr_tpu_torch.dsp import design, filters
+from vhr_tpu_torch.dsp import design, filters, projections
 from vhr_tpu_torch.pipeline import live
 
 
@@ -163,15 +165,58 @@ def test_pack_output_layout_matches_jax(clip):
                                       np.asarray(getattr(ref[-1], k)))
 
 
+@pytest.mark.parametrize("method,use_fused", [
+    ("chrom", True), ("pos", False), ("omit", True), ("adaptive", True),
+    ("adaptive", False)])
+def test_live_methods_match_jax(clip, method, use_fused):
+    """The projection methods and the adaptive selector over a ring that
+    fills (40 frames into a 30-sample ring): every tick's BPM, validity and
+    ``choice`` equal ``vhr_tpu``'s, and so is the final state."""
+    jcfg = jlive.LiveConfig(fps=clip.fps, use_fused=use_fused, ring_len=30,
+                            method=method)
+    jst, ref = _run_jax(jcfg, clip.frames)
+    st, got = _run_port(_port_cfg(jcfg), clip.frames)
+    for k in jlive.LiveOutput._fields:
+        np.testing.assert_array_equal(_field(got, k), _field(ref, k),
+                                      err_msg=k)
+    assert _field(got, "bpm_valid")[-10:].all()
+    if method == "adaptive":
+        assert len(set(_field(got, "choice")[_field(got, "bpm_valid")])) > 1
+    want = interop.live_state_to_numpy(
+        interop.live_state_from_numpy(jax.tree.map(np.asarray, jst)))
+    for k, v in interop.live_state_to_numpy(st).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("method", ["chrom", "pos", "omit", "adaptive"])
 def test_projection_methods_not_ported_yet(method):
-    cfg = live.LiveConfig(method=method)
-    with pytest.raises(NotImplementedError, match="projections"):
-        live.make_step(cfg)
-    with pytest.raises(NotImplementedError, match="projections"):
-        live.step(live.init_state(cfg),
-                  torch.zeros((48, 128, 3), dtype=torch.uint8),
-                  cfg)
+    """(Named when these methods raised.)  Each method now builds a step;
+    once a 30-sample ring is full its pulse is the offline projection of
+    the ring's frames, so the BPM is the masked Welch peak of that pulse,
+    and ``choice`` indexes ``adaptive_methods``."""
+    cfg = live.LiveConfig(method=method, fps=10.0, ring_len=30)
+    rng = np.random.default_rng(9)
+    t = np.arange(40) / 10.0
+    bgr = np.stack([105 + np.sin(2 * np.pi * 1.4 * t),
+                    135 + 2 * np.sin(2 * np.pi * 1.4 * t), 180 + 0 * t], 1)
+    bgr = (bgr + 0.1 * rng.normal(size=bgr.shape)).astype(np.float32)
+    # 40 samples written into a 30-sample ring: slot 10 holds the oldest.
+    ring_bgr = torch.as_tensor(np.roll(bgr[-30:], 10, 0))[None]
+    count = torch.tensor([40], dtype=torch.int32)
+    bpm, valid, choice = live._method_bpm(
+        cfg, ring_bgr[..., 1], ring_bgr, torch.zeros((1, 30)), count)
+    if method != "adaptive":
+        pulse = projections.PULSES[method](
+            torch.as_tensor(bgr[-30:])[None],
+            torch.ones((1, 30), dtype=torch.bool), 10.0,
+            cfg.proj_window_seconds)
+        want, ok = live._masked_welch_bpm(pulse, torch.tensor([30]), 10.0,
+                                          cfg.band, 9.0)
+        assert float(bpm[0]) == float(want[0]) and bool(valid[0]) == bool(ok)
+    assert 0 <= int(choice[0]) < len(cfg.adaptive_methods)
+    st, out = live.make_step(cfg)(live.init_state(cfg),
+                                  torch.zeros((48, 128, 3), dtype=torch.uint8))
+    assert not bool(out.face_valid) and int(out.choice) == 0
 
 
 def test_live_config_checks():

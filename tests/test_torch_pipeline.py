@@ -101,9 +101,14 @@ def test_rolling_bpm_fft_matches_jax():
                                   np.asarray(ref_s.valid))
     assert not twin.rolling_bpm_fft(torch.as_tensor(sig[:5]), FPS, CFG.band,
                                     W, A).valid.any()
-    with pytest.raises(NotImplementedError):
-        twin.rolling_bpm(torch.as_tensor(sig), FPS, CFG.band, W, A,
-                         estimator="welch")
+    # estimator="welch" dispatches to the rolling Welch estimate.
+    welch = twin.rolling_bpm(torch.as_tensor(sig), FPS, CFG.band, W, A,
+                             estimator="welch", segment_seconds=2.0)
+    ref_w = jwin.rolling_bpm(jnp.asarray(sig), FPS, JCFG.band, W, A,
+                             estimator="welch", segment_seconds=2.0)
+    np.testing.assert_array_equal(welch.valid.numpy(),
+                                  np.asarray(ref_w.valid))
+    np.testing.assert_array_equal(welch.bpm.numpy(), np.asarray(ref_w.bpm))
     with pytest.raises(ValueError):
         twin.rolling_bpm(torch.as_tensor(sig), FPS, CFG.band, W, A,
                          estimator="music")

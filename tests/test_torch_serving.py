@@ -11,7 +11,8 @@ fused kernel in interpret mode) and the port's.  Tolerances:
   filtered green within ``5e-4`` (the JAX pool's batched program rounds the
   SOS push a little differently from its own single-stream step; its tests
   use the same bound, ``tests/test_serving.py``);
-- the port's pool against the port's single-stream step: equal.
+- the port's pool against the port's single-stream step: equal, under the
+  projection and adaptive methods too.
 """
 
 import dataclasses
@@ -191,6 +192,45 @@ def test_pool_matches_jax_pool(clips, use_fused, detect_every):
     assert got[-1][0].bpm_valid
 
 
+@pytest.mark.parametrize("method", ["pos", "adaptive"])
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_pool_methods_match_jax_pool(clips, method, use_fused):
+    """A projection method and the adaptive selector over the pool's
+    ``(S, N, 3)`` rings, in the fused (K4) and the skin (K2) tick: every
+    tick's outputs, ``choice`` included, equal the JAX pool's."""
+    jcfg, cfg = _cfgs(use_fused=use_fused, method=method)
+    ref = _drive(jserving.BpmServer(jcfg, n_slots=3, donate=False), *clips)
+    got = _drive(serving.BpmServer(cfg, n_slots=3, device="cpu"), *clips)
+    _assert_pools_equal(got, ref)
+    assert got[-1][0].bpm_valid
+
+
+@pytest.mark.parametrize("method", ["pos", "adaptive"])
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_pool_method_slots_equal_single_stream_step(clips, method,
+                                                    use_fused):
+    """Two slots, one attached two ticks late, each equal to the port's
+    single-stream step on its own frames under the same method."""
+    _, cfg = _cfgs(use_fused=use_fused, method=method)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
+    singles = [live.init_state(cfg), live.init_state(cfg)]
+    a = pool.attach()
+    for t in range(len(clips[0])):
+        fr = {a: clips[0][t]}
+        if t == 2:
+            b = pool.attach()
+        if t >= 2:
+            fr[b] = clips[1][t - 2]
+        outs = pool.tick(fr)
+        for s, (slot, f) in enumerate(fr.items()):
+            singles[s], o = live.step(singles[s], torch.as_tensor(f), cfg)
+            for k in live.LiveOutput._fields:
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(o, k)), getattr(outs[slot], k),
+                    err_msg=f"slot {slot} tick {t} {k}")
+    assert outs[a].bpm_valid and outs[b].bpm_valid
+
+
 def test_pool_slots_equal_single_stream_step(clips):
     """Each fused slot is the port's single-stream fused step on its own
     frames, exactly: a late attacher detects on its own first frame."""
@@ -309,6 +349,36 @@ def test_tcp_and_ws_replies_equal_tick_outputs(clips):
     assert results["tcp"][-1]["bpm_valid"]
 
 
+def test_served_lines_name_the_adaptive_method(clips):
+    """Under ``method="adaptive"`` every served line carries ``"method"``,
+    the name of the pulse construction behind its BPM (the JAX front-end's
+    field); the lines equal the single-stream step's outputs."""
+    _, cfg = _cfgs(use_fused=True, method="adaptive")
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu")
+    srv = _serve(pool, clips[0][0].shape[:2])
+    c = serving.BpmClient("127.0.0.1", srv.server_address[1])
+    for f in clips[0]:
+        c.send(f)
+    lines = [c.recv() for _ in clips[0]]
+    c.close()
+    srv.shutdown()
+    st = live.init_state(cfg)
+    for line, f in zip(lines, clips[0]):
+        st, o = live.step(st, torch.as_tensor(f), cfg)
+        assert line["method"] == cfg.adaptive_methods[int(o.choice)]
+        assert line["bpm"] == round(float(o.bpm), 4)
+        assert line["bpm_valid"] == bool(o.bpm_valid)
+    assert lines[-1]["bpm_valid"]
+    assert len({ln["method"] for ln in lines if ln["bpm_valid"]}) > 1
+    plain = serving.BpmServer(_cfgs()[1], n_slots=1, device="cpu")
+    srv = _serve(plain, clips[0][0].shape[:2])
+    c = serving.BpmClient("127.0.0.1", srv.server_address[1])
+    c.send(clips[0][0])
+    assert "method" not in c.recv()
+    c.close()
+    srv.shutdown()
+
+
 def test_tcp_server_survives_malformed_clients(clips):
     """Garbage hellos and wrong-length frames get an error line and a clean
     hangup; the pool and other clients are unaffected."""
@@ -367,7 +437,6 @@ def test_auth_token_both_protocols(clips):
     (dict(transfer="i420"), "item 7"),
     (dict(mesh=object()), "item 14"),
     (dict(k_faces=2), "item 12"),
-    (dict(cfg=live.LiveConfig(method="pos")), "item 6"),
 ])
 def test_pool_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -4,7 +4,8 @@ Port of ``vhr_tpu/ops/windows.py``.  Frame ``i`` sees the deque
 ``signal[max(0, i-W+1) : i+1]``: while the deque grows (lengths A..W-1)
 an exact masked DFT evaluates every growing-length spectrum on its own
 frequency grid (the ramp); once full, one batched rfft over all length-W
-windows (the steady part).
+windows (the steady part).  The Welch estimate and the in-band SNR run on
+full-length windows only.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from ..config import HRBand
 from ..dsp import spectral
 
-__all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft", "rolling_bpm"]
+__all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft",
+           "rolling_bpm_welch", "rolling_bpm", "rolling_band_snr"]
 
 
 def sliding_windows(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -73,6 +75,10 @@ def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
     return torch.cat(bpms), torch.cat(valids)
 
 
+def _as_float(signal: torch.Tensor) -> torch.Tensor:
+    return signal if signal.is_floating_point() else signal.to(torch.float32)
+
+
 def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
                     window_len: int, acquisition_len: int) -> RollingBPM:
     """Per-frame FFT-peak BPM with the reference's deque semantics.
@@ -81,7 +87,7 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
     produces an estimate once at least ``acquisition_len`` samples exist.
     """
     T = signal.shape[0]
-    x = signal if signal.is_floating_point() else signal.to(torch.float32)
+    x = _as_float(signal)
     bpm = torch.zeros((T,), dtype=x.dtype, device=x.device)
     valid = torch.zeros((T,), dtype=torch.bool, device=x.device)
 
@@ -108,6 +114,41 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
     return RollingBPM(bpm=bpm, valid=valid)
 
 
+def rolling_bpm_welch(signal: torch.Tensor, fps: float, band: HRBand,
+                      window_len: int,
+                      segment_seconds: float = 9.0) -> RollingBPM:
+    """Per-frame Welch-PSD BPM over full-length sliding windows; frames
+    before ``window_len - 1`` are invalid (Welch's segments need the whole
+    window)."""
+    T = signal.shape[0]
+    x = _as_float(signal)
+    bpm = torch.zeros((T,), dtype=x.dtype, device=x.device)
+    valid = torch.zeros((T,), dtype=torch.bool, device=x.device)
+    if T >= window_len:
+        est = spectral.estimate_bpm_welch(sliding_windows(x, window_len),
+                                          fps, band, segment_seconds)
+        bpm[window_len - 1:] = est.bpm
+        valid[window_len - 1:] = est.valid
+    return RollingBPM(bpm=bpm, valid=valid)
+
+
+def rolling_band_snr(signal: torch.Tensor, fps: float, band: HRBand,
+                     window_len: int,
+                     target_bpm=None) -> torch.Tensor:
+    """Per-frame in-band SNR over full-length sliding windows -> ``(T,)``:
+    frame ``i >= window_len - 1`` scores ``signal[i-W+1 : i+1]`` at its own
+    dominant bin, or at ``target_bpm[i]``; earlier frames get ``-inf`` (no
+    quality information yet)."""
+    T = signal.shape[0]
+    x = _as_float(signal)
+    out = torch.full((T,), -math.inf, dtype=x.dtype, device=x.device)
+    if T >= window_len:
+        tgt = None if target_bpm is None else target_bpm[window_len - 1:]
+        out[window_len - 1:] = spectral.band_snr(
+            sliding_windows(x, window_len), fps, band, target_bpm=tgt)
+    return out
+
+
 def rolling_bpm(signal: torch.Tensor, fps: float, band: HRBand,
                 window_len: int, acquisition_len: int,
                 estimator: str = "fft",
@@ -116,7 +157,6 @@ def rolling_bpm(signal: torch.Tensor, fps: float, band: HRBand,
     if estimator == "fft":
         return rolling_bpm_fft(signal, fps, band, window_len, acquisition_len)
     if estimator == "welch":
-        raise NotImplementedError(
-            "estimator='welch' is not ported yet (ROADMAP.md queue 1, item 6: "
-            "rolling_bpm_welch)")
+        return rolling_bpm_welch(signal, fps, band, window_len,
+                                 segment_seconds)
     raise ValueError(f"unknown estimator {estimator!r} (fft | welch)")

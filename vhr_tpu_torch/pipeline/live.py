@@ -2,11 +2,15 @@
 
 Port of ``vhr_tpu/pipeline/live.py`` (``pack_output``, ``unpack_output``,
 ``LiveConfig``, ``LiveState``, ``LiveOutput``, ``init_state``,
-``_masked_welch_psd``, ``_masked_welch_bpm``, ``_method_bpm``, ``step``,
-``make_step``) for the ``"green"`` method.  The per-frame update is the
-reference's live loop as tensor code: detection (or the fused kernel),
-landmark holdover, ROI mean, one causal SOS step, a masked ring write and a
-masked Welch BPM over the ring.
+``_masked_welch_psd``, ``_masked_welch_bpm``, ``_ring_pulse``,
+``_welch_snr``, ``_method_bpm``, ``step``, ``make_step``).  The per-frame
+update is the reference's live loop as tensor code: detection (or the
+fused kernel), landmark holdover, ROI mean, one causal SOS step, a masked
+ring write and a masked Welch BPM over the ring.  The method decides what
+the Welch runs over: the filtered green ring (``"green"``), a chrominance
+projection recomputed from the BGR ring each tick (``"chrom"``, ``"pos"``,
+``"omit"``), or all of ``adaptive_methods``, the tick's BPM from the one
+with the best consensus-anchored SNR (``"adaptive"``).
 
 The update is written once, over a leading slot axis, and shared with the
 serving pool (``vhr_tpu_torch.serving``), which advances all its slots in one
@@ -17,22 +21,22 @@ The skin-detector path runs the detector on every frame and masks its
 result off the ``detect_every`` cadence for the same reason; the pool, which
 keeps its cadence on the host, skips the detector on off-cadence ticks.
 
-Not ported yet: the ``chrom``/``pos``/``omit``/``adaptive`` methods (they
-need ``dsp/projections.py``), ``transfer="i420"`` (``ops/color.py``),
-``LivePipeline`` and ``step_multi``.
+Not ported yet: ``transfer="i420"`` (``ops/color.py``), ``LivePipeline``
+and ``step_multi``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import BAND_LIVE, HRBand, ROIConfig
-from ..dsp import design, filters
+from ..dsp import design, filters, projections, spectral
 from ..models import skin_detector
 from ..ops import roi as vroi
 from ..ops.fused_cuda import fused_detect_roi_slots
@@ -42,7 +46,6 @@ from .offline import DetectorFn
 __all__ = ["LiveConfig", "LiveState", "LiveOutput", "init_state", "step",
            "make_step", "pack_output", "unpack_output"]
 
-_PROJECTION_METHODS = ("chrom", "pos", "omit", "adaptive")
 
 
 def pack_output(o: "LiveOutput") -> torch.Tensor:
@@ -112,7 +115,8 @@ class LiveOutput(NamedTuple):
     green_filtered: torch.Tensor
     box: torch.Tensor
     face_valid: torch.Tensor
-    choice: torch.Tensor       # index into cfg.adaptive_methods (0 here)
+    choice: torch.Tensor       # index into cfg.adaptive_methods behind
+                               # this tick's BPM (0 unless "adaptive")
 
 
 def _sos(cfg: LiveConfig) -> np.ndarray:
@@ -121,11 +125,7 @@ def _sos(cfg: LiveConfig) -> np.ndarray:
 
 
 def _check_method(cfg: LiveConfig) -> None:
-    if cfg.method in _PROJECTION_METHODS:
-        raise NotImplementedError(
-            f"live method {cfg.method!r} needs dsp/projections.py, not yet "
-            f"ported (ROADMAP queue 1, item 6); the port has 'green'")
-    if cfg.method != "green":
+    if cfg.method not in ("green", "adaptive") + tuple(projections.PULSES):
         raise ValueError(f"unknown live method {cfg.method!r}")
 
 
@@ -240,22 +240,100 @@ def _masked_welch_bpm(ordered: torch.Tensor, n_valid: torch.Tensor,
     return freqs[torch.argmax(mean_psd, dim=-1)] * 60.0, valid
 
 
+def _ring_pulse(method: str, ordered_bgr: torch.Tensor,
+                ordered_green: torch.Tensor, n_valid: torch.Tensor,
+                fps: float, window_seconds: float) -> torch.Tensor:
+    """Pulse of ``method`` over ordered rings -> ``(..., N)``.
+
+    The last ``n_valid`` samples are data; the projections forward-fill the
+    zero prefix from the first valid sample, so once a ring is full this is
+    ``dsp.projections.<method>_pulse`` over its trailing ``N`` frames.
+    """
+    if method == "green":
+        return ordered_green
+    N = ordered_bgr.shape[-2]
+    suffix = (torch.arange(N, device=n_valid.device)
+              >= (N - n_valid)[..., None])
+    if method not in projections.PULSES:
+        raise ValueError(f"unknown live method {method!r}")
+    return projections.PULSES[method](ordered_bgr, suffix, fps,
+                                      window_seconds)
+
+
+def _welch_snr(mean_psd: torch.Tensor, band_freqs: np.ndarray,
+               target_bpm: torch.Tensor, guard_bins: int) -> torch.Tensor:
+    """In-band SNR of Welch PSDs ``(..., B)`` around ``target_bpm (...)``:
+    the power within ``guard_bins`` bins of the target over the rest of the
+    band (``dsp.spectral.band_snr``'s targeted form on the live Welch's
+    banded grid)."""
+    f = torch.as_tensor(band_freqs, dtype=torch.float32,
+                        device=mean_psd.device)
+    df = float(band_freqs[1] - band_freqs[0]) if len(band_freqs) > 1 else 1.0
+    near = (f - (target_bpm / 60.0)[..., None]).abs() \
+        <= (guard_bins + 0.5) * df
+    peak = torch.where(near, mean_psd, torch.zeros_like(mean_psd)).sum(-1)
+    rest = mean_psd.sum(-1) - peak
+    return peak / torch.clamp(rest, min=1e-12)
+
+
 def _method_bpm(cfg: LiveConfig, ring_raw: torch.Tensor,
                 ring_bgr: torch.Tensor, ring_filt: torch.Tensor,
                 count: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-tick BPM of each ring under ``cfg.method`` -> ``(bpm, valid,
-    choice)``: Welch over the causally filtered ring, in time order."""
+    choice)``.  ``"green"``: Welch over the causally filtered ring, in time
+    order.  A projection: Welch over the pulse recomputed from the BGR ring.
+    ``"adaptive"``: every method of ``cfg.adaptive_methods`` scored by its
+    Welch SNR around the median BPM of the valid methods (an even count
+    averages its two middle values, as ``jnp.nanmedian``), the best one's
+    BPM and its index as ``choice``."""
     _check_method(cfg)
     N = cfg.ring_len
     n_valid = count.clamp(max=N)
+    zeros = torch.zeros_like(count)
     # Rotate each ring so its oldest sample comes first (jnp.roll(-r)).
     idx = (torch.arange(N, device=count.device)
            + (count % N).to(torch.int64)[..., None]) % N
-    ordered = torch.gather(ring_filt, -1, idx)
-    bpm, valid = _masked_welch_bpm(ordered, n_valid, cfg.fps, cfg.band,
-                                   cfg.welch_segment_seconds)
-    return bpm, valid, torch.zeros_like(count)
+    band = (cfg.fps, cfg.band, cfg.welch_segment_seconds)
+    if cfg.method == "green":
+        bpm, valid = _masked_welch_bpm(torch.gather(ring_filt, -1, idx),
+                                       n_valid, *band)
+        return bpm, valid, zeros
+    ordered_bgr = torch.gather(ring_bgr, -2, idx[..., None].expand(
+        ring_bgr.shape))
+    ordered_green = torch.gather(ring_raw, -1, idx)
+    if cfg.method != "adaptive":
+        pulse = _ring_pulse(cfg.method, ordered_bgr, ordered_green, n_valid,
+                            cfg.fps, cfg.proj_window_seconds)
+        bpm, valid = _masked_welch_bpm(pulse, n_valid, *band)
+        return bpm, valid, zeros
+
+    bpms, oks, psds = [], [], []
+    for m in cfg.adaptive_methods:
+        pulse = _ring_pulse(m, ordered_bgr, ordered_green, n_valid, cfg.fps,
+                            cfg.proj_window_seconds)
+        res = _masked_welch_psd(pulse, n_valid, *band)
+        if res is None:                  # degenerate band/fps config
+            return (torch.zeros(count.shape, dtype=torch.float32,
+                                device=count.device),
+                    torch.zeros(count.shape, dtype=torch.bool,
+                                device=count.device), zeros)
+        mean_psd, band_freqs, ok = res
+        freqs = torch.as_tensor(band_freqs, dtype=torch.float32,
+                                device=count.device)
+        bpms.append(freqs[torch.argmax(mean_psd, dim=-1)] * 60.0)
+        oks.append(ok)
+        psds.append(mean_psd)
+    bpm_m, ok_m = torch.stack(bpms), torch.stack(oks)        # (M, ...)
+    consensus = torch.nan_to_num(spectral.nanmedian(
+        torch.where(ok_m, bpm_m, torch.full_like(bpm_m, float("nan"))), 0))
+    snr_m = torch.stack([_welch_snr(p, band_freqs, consensus,
+                                    cfg.snr_guard_bins) for p in psds])
+    ranked = torch.where(ok_m, snr_m, torch.full_like(snr_m, -math.inf))
+    choice = torch.argmax(ranked, dim=0)
+    bpm = torch.gather(bpm_m, 0, choice[None])[0]
+    valid = torch.gather(ok_m, 0, choice[None])[0]
+    return bpm, valid, choice.to(torch.int32)
 
 
 # --- the update, over a leading slot axis ---------------------------------

@@ -1,12 +1,19 @@
-"""The offline green-channel measure: whole-clip and streaming.
+"""The offline measures: whole-clip and streaming.
 
-Port of the main path of ``vhr_tpu/pipeline/offline.py``:
+Port of ``vhr_tpu/pipeline/offline.py``.  The main path is the
+green-channel measure:
 
   uint8 frames (T, H, W, 3) -> skin-chroma face box -> <=15-frame holdover
   -> cheek ROI -> per-frame BGR means -> forward-fill -> rolling FFT BPM
   -> (ts, bpm, valid)
 
-in its two forms: the detect-then-reduce form (:func:`extract_signals`,
+and the other measures share its front end and change the pulse or the
+estimator: the chrominance projections (:func:`measure_projection`), the
+per-window best of them (:func:`measure_adaptive`), FastICA
+(:func:`measure_ica`) and the interactive app's filtered Welch loop
+(:func:`measure_app_welch`).  The front end runs
+
+in two forms: the detect-then-reduce form (:func:`extract_signals`,
 with the K2 ROI kernel under ``use_pallas="roi"``) and the fused form
 (:func:`extract_signals_fused`, kernel K1).  ``use_pallas`` keeps the JAX
 package's name and values so callers of both packages read alike.
@@ -20,15 +27,18 @@ their ROI means on kernel K3.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import PipelineConfig
+from ..config import ICAConfig, PipelineConfig
 from ..device import resolve_device
+from ..dsp import design, filters, ica as ica_mod, spectral
 from ..dsp.filters import forward_fill
+from ..dsp.projections import PULSES
 from ..io.video import ChunkReader
 from ..models import skin_detector
 from ..ops import reduce as vreduce
@@ -41,7 +51,9 @@ from ..ops.roi_means_cuda import (roi_channel_means_batched_cuda,
 
 __all__ = ["SignalTrace", "extract_signals", "extract_signals_fused",
            "extract_signals_streaming", "measure_green_avg",
-           "measure_green_avg_file", "to_measurement_array"]
+           "measure_green_avg_file", "measure_projection", "AdaptiveResult",
+           "adaptive_pulse_select", "measure_adaptive", "measure_ica",
+           "measure_app_welch", "to_measurement_array"]
 
 # A detector maps (T, H, W, 3) u8 -> ((T, 4) int32 boxes, (T,) bool valid).
 DetectorFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -172,17 +184,255 @@ def measure_green_avg(frames: torch.Tensor, fps: float,
     """
     trace = extract_signals(frames, cfg, detector, use_pallas,
                             detect_every=detect_every)
-    green = _fill_invalid(trace.bgr[:, cfg.channel], trace.valid)
-    rolling = vwin.rolling_bpm(
-        green, fps, cfg.band,
-        window_len=cfg.window_len(fps),
-        acquisition_len=cfg.acquisition_len(fps),
-        estimator=cfg.estimator,
-        segment_seconds=cfg.welch.segment_seconds)
-    ts = np.arange(frames.shape[0]) / fps
-    valid = rolling.valid & trace.valid
-    return ts, rolling.bpm.cpu().numpy(), valid.cpu().numpy()
+    return _host(fps, *_green_bpm(trace.bgr, trace.valid, fps, cfg))
 
+
+# --- the DSP after the trace ----------------------------------------------
+# Each function maps a (T, 3) BGR trace and its (T,) validity to per-frame
+# (bpm, valid) tensors on the trace's device; the measures are the front end
+# (extract_signals) followed by one of them.
+
+def _host(fps: float, bpm: torch.Tensor, valid: torch.Tensor
+          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(timestamps, bpm, valid)`` numpy arrays of a measure."""
+    return (np.arange(bpm.shape[0]) / fps, bpm.cpu().numpy(),
+            valid.cpu().numpy())
+
+
+def _rolling(pulse: torch.Tensor, fps: float, cfg: PipelineConfig
+             ) -> vwin.RollingBPM:
+    """The configured rolling estimator over a ``(T,)`` pulse."""
+    return vwin.rolling_bpm(pulse, fps, cfg.band,
+                            window_len=cfg.window_len(fps),
+                            acquisition_len=cfg.acquisition_len(fps),
+                            estimator=cfg.estimator,
+                            segment_seconds=cfg.welch.segment_seconds)
+
+
+def _green_bpm(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
+               cfg: PipelineConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The green measure's DSP: forward-fill, the rolling estimate."""
+    rolling = _rolling(_fill_invalid(bgr[:, cfg.channel], valid), fps, cfg)
+    return rolling.bpm, rolling.valid & valid
+
+
+def _projection_bpm(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
+                    cfg: PipelineConfig, method: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A projection measure's DSP: the pulse, the rolling estimate."""
+    rolling = _rolling(PULSES[method](bgr, valid, fps), fps, cfg)
+    return rolling.bpm, rolling.valid & valid
+
+
+def measure_projection(frames: torch.Tensor, fps: float,
+                       method: str = "pos",
+                       cfg: PipelineConfig = PipelineConfig(),
+                       detector: Optional[DetectorFn] = None,
+                       use_pallas=False,
+                       detect_every: int = 1
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Chrominance-projection measures, ``method`` in {"chrom", "pos",
+    "omit"}: :func:`measure_green_avg`'s contract, with the pulse from a
+    motion-robust projection of the BGR means (``dsp.projections``)
+    instead of the raw green mean."""
+    trace = extract_signals(frames, cfg, detector, use_pallas,
+                            detect_every=detect_every)
+    return _host(fps, *_projection_bpm(trace.bgr, trace.valid, fps, cfg,
+                                       method))
+
+
+class AdaptiveResult(NamedTuple):
+    ts: np.ndarray        # (T,) seconds
+    bpm: np.ndarray       # (T,) selected-method estimate
+    valid: np.ndarray     # (T,) bool
+    choice: np.ndarray    # (T,) int index into `methods` (0 during ramp)
+    snr: np.ndarray       # (M, T) per-method in-band SNR (-inf during ramp)
+
+
+def adaptive_pulse_select(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
+                          cfg: PipelineConfig = PipelineConfig(),
+                          methods: Tuple[str, ...] = ("green", "chrom",
+                                                      "pos", "omit")):
+    """Per-window best-of-breed pulse selection from ``(T, 3)`` BGR means.
+
+    Builds every candidate pulse (the raw green mean and the CHROM, POS and
+    OMIT projections) and takes each frame's BPM from the method whose
+    window scores the best in-band SNR around the cross-method consensus:
+    the median BPM of the valid methods (an even count averages its two
+    middle values, as ``jnp.nanmedian``).  Frames before a full window
+    take ``methods[0]``.  Returns ``(bpm (T,), valid (T,), choice (T,),
+    snr (M, T))`` tensors.
+    """
+    W = cfg.window_len(fps)
+    pulses, bpms, oks = [], [], []
+    for m in methods:
+        if m == "green":
+            pulse = _fill_invalid(bgr[:, cfg.channel], valid)
+        else:
+            pulse = PULSES[m](bgr, valid, fps)
+        rolling = _rolling(pulse, fps, cfg)
+        pulses.append(pulse)
+        bpms.append(rolling.bpm)
+        oks.append(rolling.valid)
+    bpm_m, ok_m = torch.stack(bpms), torch.stack(oks)        # (M, T)
+    consensus = torch.nan_to_num(spectral.nanmedian(
+        torch.where(ok_m, bpm_m, torch.full_like(bpm_m, float("nan"))), 0))
+    snr_m = torch.stack([
+        vwin.rolling_band_snr(p, fps, cfg.band, W, target_bpm=consensus)
+        for p in pulses])                                    # (M, T)
+    # Invalid methods never win; all -inf (ramp) -> argmax picks index 0.
+    ranked = torch.where(ok_m, snr_m, torch.full_like(snr_m, -math.inf))
+    choice = torch.argmax(ranked, dim=0)
+    take = lambda a: torch.gather(a, 0, choice[None])[0]
+    return take(bpm_m), take(ok_m), choice, snr_m
+
+
+def measure_adaptive(frames: torch.Tensor, fps: float,
+                     cfg: PipelineConfig = PipelineConfig(),
+                     detector: Optional[DetectorFn] = None,
+                     use_pallas=False,
+                     methods: Tuple[str, ...] = ("green", "chrom",
+                                                 "pos", "omit"),
+                     detect_every: int = 1) -> AdaptiveResult:
+    """Adaptive measurement: :func:`measure_green_avg`'s front end, each
+    frame's estimate from the method :func:`adaptive_pulse_select` picks
+    for its window; ``choice`` and ``snr`` expose the selection."""
+    trace = extract_signals(frames, cfg, detector, use_pallas,
+                            detect_every=detect_every)
+    bpm, ok, choice, snr = adaptive_pulse_select(trace.bgr, trace.valid, fps,
+                                                 cfg, methods)
+    ts, bpm, valid = _host(fps, bpm, ok & trace.valid)
+    return AdaptiveResult(ts=ts, bpm=bpm, valid=valid,
+                          choice=choice.cpu().numpy(), snr=snr.cpu().numpy())
+
+
+def _masked_norm(wins: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Per-window std-normalise ``(N, L, C)`` windows over their first
+    ``n_valid`` rows (ddof=1); other rows become 0."""
+    keep = (torch.arange(wins.shape[1], device=wins.device)
+            < n_valid[:, None])[..., None]
+    n = n_valid.to(wins.dtype)[:, None, None]
+    zero = torch.zeros((), dtype=wins.dtype, device=wins.device)
+    mean = torch.where(keep, wins, zero).sum(1, keepdim=True) / n
+    var = torch.where(keep, (wins - mean) ** 2, zero).sum(
+        1, keepdim=True) / (n - 1.0)
+    std = torch.sqrt(var)
+    std = torch.where(std == 0, torch.ones_like(std), std)
+    return torch.where(keep, wins / std, zero)
+
+
+def _ica_bpm(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
+             cfg: PipelineConfig, icacfg: ICAConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ICA measure's DSP: the growing windows of the acquisition ramp
+    (padded to one length, with their true lengths) and the full sliding
+    windows, each solved as one FastICA batch."""
+    bgr_f = _fill_invalid(bgr, valid)                        # (T, 3)
+    T, dev = bgr.shape[0], bgr.device
+    window_len = int(icacfg.window_seconds * fps)
+    acq_len = int(icacfg.acquisition_seconds * fps)
+    bpm = torch.zeros(T, dtype=torch.float32, device=dev)
+    ok = torch.zeros(T, dtype=torch.bool, device=dev)
+    first = acq_len - 1
+    if first >= T:
+        return bpm, ok
+    w_init = ica_mod.default_w_init(icacfg.n_components, icacfg.seed)
+    # Ramp: frame i sees bgr[:i+1] (the deque still filling).
+    ramp_end = min(window_len - 1, T - 1)
+    if ramp_end >= first:
+        lengths = torch.arange(first + 1, ramp_end + 2, device=dev)
+        prefix = bgr_f[:ramp_end + 1]
+        wins = prefix[None].expand((lengths.shape[0],) + prefix.shape)
+        res = ica_mod.ica_sources(_masked_norm(wins, lengths), w_init,
+                                  icacfg.max_iter, icacfg.tol,
+                                  n_valid=lengths)
+        est = spectral.estimate_bpm_multichannel_exact(res.sources, lengths,
+                                                       fps, cfg.band)
+        bpm[first:ramp_end + 1] = est.bpm
+        ok[first:ramp_end + 1] = est.valid & res.converged
+    # Steady: full-length sliding windows as one batch.
+    if T >= window_len:
+        wins = vwin.sliding_windows(bgr_f, window_len)       # (N, W, 3)
+        n = wins.shape[1]
+        c = wins - wins.mean(1, keepdim=True)
+        std = (c * c).mean(1, keepdim=True).sqrt() * math.sqrt(n / (n - 1.0))
+        std = torch.where(std == 0, torch.ones_like(std), std)
+        res = ica_mod.ica_sources(wins / std, w_init, icacfg.max_iter,
+                                  icacfg.tol)
+        est = spectral.estimate_bpm_multichannel(res.sources, fps, cfg.band)
+        bpm[window_len - 1:] = est.bpm
+        ok[window_len - 1:] = est.valid & res.converged
+    return bpm, ok & valid
+
+
+def measure_ica(frames: torch.Tensor, fps: float,
+                cfg: PipelineConfig = PipelineConfig(),
+                icacfg: ICAConfig = ICAConfig(),
+                detector: Optional[DetectorFn] = None,
+                use_pallas=False,
+                detect_every: int = 1
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The ICA measure (the reference's ``analysis/measurement/ica.py``).
+
+    Per frame after acquisition: std-normalise the window's BGR means
+    (ddof=1), FastICA, skip windows that did not converge, take the best
+    component's in-band FFT peak (:func:`_ica_bpm`).
+    """
+    trace = extract_signals(frames, cfg, detector, use_pallas,
+                            detect_every=detect_every)
+    return _host(fps, *_ica_bpm(trace.bgr, trace.valid, fps, cfg, icacfg))
+
+
+def _app_filter(wins: torch.Tensor, fps: float,
+               cfg: PipelineConfig) -> torch.Tensor:
+    """The app's zero-phase band-pass of ``cfg.filter`` over the last axis
+    of ``(N, L)`` windows: Butterworth or Chebyshev II sections through
+    ``sosfiltfilt``, or a FIR through ``filtfilt_fir``."""
+    fc = cfg.filter
+    if fc.kind == "fir":
+        b = design.firwin_bandpass(fc.fir_numtaps,
+                                   cfg.band.low_hz / (0.5 * fps),
+                                   cfg.band.high_hz / (0.5 * fps))
+        return filters.filtfilt_fir(b, wins.T).T
+    sos = design.sos_design(fc.kind, fps, cfg.band.low_hz, cfg.band.high_hz,
+                            fc.order, fc.cheby2_stop_atten_db)
+    return filters.sosfiltfilt(sos, wins.T).T
+
+
+def _app_welch_bpm(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
+                   cfg: PipelineConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The app loop's DSP: per frame after the first window, the last
+    ``window_len`` green samples demeaned, band-passed
+    (:func:`_app_filter`) and the Welch PSD peak, every window in one
+    batch."""
+    green = _fill_invalid(bgr[:, cfg.channel], valid)
+    T, dev = bgr.shape[0], bgr.device
+    window_len = cfg.window_len(fps)
+    bpm = torch.zeros(T, dtype=torch.float32, device=dev)
+    ok = torch.zeros(T, dtype=torch.bool, device=dev)
+    if T > window_len:
+        wins = vwin.sliding_windows(green, window_len)[1:]   # frames W..T-1
+        wins = wins - wins.mean(-1, keepdim=True)
+        est = spectral.estimate_bpm_welch(_app_filter(wins, fps, cfg), fps,
+                                          cfg.band,
+                                          cfg.welch.segment_seconds)
+        bpm[window_len:] = est.bpm
+        ok[window_len:] = est.valid
+    return bpm, ok & valid
+
+
+def measure_app_welch(frames: torch.Tensor, fps: float,
+                      cfg: PipelineConfig = PipelineConfig(),
+                      detector: Optional[DetectorFn] = None,
+                      use_pallas=False,
+                      detect_every: int = 1
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The interactive app's analysis loop (:func:`_app_welch_bpm`):
+    frames up to ``window_len`` are invalid (the app needs more samples
+    than the window)."""
+    trace = extract_signals(frames, cfg, detector, use_pallas,
+                            detect_every=detect_every)
+    return _host(fps, *_app_welch_bpm(trace.bgr, trace.valid, fps, cfg))
 
 def _stream(video_path: str, cfg: PipelineConfig,
             detector: Optional[DetectorFn], chunk_frames: int,
@@ -331,13 +581,7 @@ def measure_green_avg_file(video_path: str,
     T = bgr.shape[0]
     if T == 0:
         return np.zeros(0), np.zeros(0, np.float32), np.zeros(0, bool)
-    green = _fill_invalid(bgr[:, cfg.channel], valid)
-    rolling = vwin.rolling_bpm(green, fps, cfg.band, cfg.window_len(fps),
-                               cfg.acquisition_len(fps),
-                               estimator=cfg.estimator,
-                               segment_seconds=cfg.welch.segment_seconds)
-    ok = (rolling.valid & valid).cpu().numpy()
-    return np.arange(T) / fps, rolling.bpm.cpu().numpy(), ok
+    return _host(fps, *_green_bpm(bgr, valid, fps, cfg))
 
 
 def to_measurement_array(ts: np.ndarray, bpm: np.ndarray,

@@ -23,10 +23,14 @@ and advances all slots per tick:
   otherwise the skin detector runs over the batch on the pool's tick cadence
   (skipped on the host when the tick is off it) and kernel K2 takes the ROI
   means.
+- **Every live method.**  ``cfg.method`` is ``"green"``, a chrominance
+  projection (``"chrom"``, ``"pos"``, ``"omit"``) or ``"adaptive"``; the
+  projections run over all ``(S, N, 3)`` BGR rings of the pool at once, and
+  under ``"adaptive"`` each served line names the method behind its BPM.
 
 Not ported yet: ``transfer="i420"`` (needs ``ops/color.py``, ROADMAP queue 1
-item 7), ``mesh=`` (queue 1 item 14), ``k_faces > 1`` (queue 1 item 12) and
-the projection methods (item 6); each raises ``NotImplementedError``.
+item 7), ``mesh=`` (queue 1 item 14) and ``k_faces > 1`` (queue 1 item 12);
+each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -465,14 +469,19 @@ class _BpmTCPServer(socketserver.ThreadingTCPServer):
             st["frames"] += len(outs)
             st["tick_ms_ema"] = (dt_ms if st["ticks"] == 1 else
                                  0.95 * st["tick_ms_ema"] + 0.05 * dt_ms)
-            # (The JAX pool's k_faces > 1 lists and adaptive "method"
-            # field have no port pool to come from yet.)
+            # (The JAX pool's k_faces > 1 lists have no port pool to come
+            # from yet.)
             for c in outs_for:
                 o = outs[c.slot]
                 msg = {"seq": c.seq, "bpm": round(float(o.bpm), 4),
                        "bpm_valid": bool(o.bpm_valid),
                        "face_valid": bool(o.face_valid),
                        "box": [int(x) for x in np.asarray(o.box)]}
+                if self.pool.cfg.method == "adaptive":
+                    # Which pulse construction (an index into
+                    # cfg.adaptive_methods) won this tick.
+                    msg["method"] = self.pool.cfg.adaptive_methods[
+                        int(o.choice)]
                 line = json.dumps(msg) + "\n"
                 c.seq += 1
                 with c.wlock:

@@ -1,22 +1,29 @@
-"""The frame-at-a-time CPU reference of the green-channel measure.
+"""Fidelity validation: the port's green-channel measure against the
+frame-at-a-time CPU reference and the synthetic clips' truth.
 
-The port's own copy of ``vhr_tpu/validation.py::cpu_reference_green_avg``:
-a faithful per-frame numpy port of the reference's deque loop
-(``analysis/measurement/green_avg.py``) and FFT peak
-(``analysis/utils/estimate_bpm.py``).  ``chip_smoke.py`` holds the port's
-BPM against it on the port's own green trace.
+The port's own copy of ``vhr_tpu/validation.py::cpu_reference_green_avg``
+(a faithful per-frame numpy port of the reference's deque loop,
+``analysis/measurement/green_avg.py``, and FFT peak,
+``analysis/utils/estimate_bpm.py``), and the port of
+``validate_green_avg``: both pipelines consume the same per-frame ROI
+greens, so their difference is the DSP's, and the same estimator fed by the
+ground-truth face boxes' ROI isolates the detector's error.
+``chip_smoke.py`` holds the port's BPM against the reference on the port's
+own green trace.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
-from .config import BAND_ANALYSIS, HRBand
+from .config import BAND_ANALYSIS, HRBand, PipelineConfig
+from .utils.synth import SynthSpec, synthesize
 
-__all__ = ["cpu_reference_green_avg"]
+__all__ = ["cpu_reference_green_avg", "validate_green_avg"]
 
 
 def cpu_reference_green_avg(green: np.ndarray, fps: float,
@@ -46,3 +53,62 @@ def cpu_reference_green_avg(green: np.ndarray, fps: float,
             continue
         out[i] = float(fp[mask][np.argmax(mp[mask])] * 60.0)
     return out
+
+
+def validate_green_avg(specs: List[SynthSpec],
+                       cfg: PipelineConfig = PipelineConfig(),
+                       device=None) -> List[dict]:
+    """Per-clip fidelity record: the port-vs-CPU-reference MAE and the
+    MAEs against the truth, keyed as the JAX package's rows
+    (``mae_tpu_vs_cpu_reference`` is the port's BPM against the CPU
+    reference).  The port runs on ``device``: the CUDA card unless
+    ``device="cpu"``."""
+    import torch
+
+    from .device import resolve_device
+    from .ops import reduce as vreduce
+    from .ops import roi as vroi
+    from .ops import windows as vwin
+    from .pipeline import offline
+
+    dev = resolve_device(device)
+    rows = []
+    for spec in specs:
+        clip = synthesize(spec)
+        frames = torch.as_tensor(clip.frames, device=dev)
+        trace = offline.extract_signals(frames, cfg)
+        green_t = trace.bgr[:, cfg.channel]
+        green = green_t.cpu().numpy()
+        rolling = vwin.rolling_bpm_fft(
+            green_t, clip.fps, cfg.band, cfg.window_len(clip.fps),
+            cfg.acquisition_len(clip.fps))
+        port_bpm = rolling.bpm.cpu().numpy()
+        port_valid = rolling.valid.cpu().numpy()
+
+        # The same estimator fed by the ground-truth face boxes' cheek ROI:
+        # the difference is the detector's (ROI placement), not the DSP's.
+        H, W = clip.frames.shape[1:3]
+        rois_t = vroi.cheek_roi(torch.as_tensor(clip.face_boxes, device=dev),
+                                cfg.roi, W, H)
+        means_t, _ = vreduce.roi_channel_means(frames, rois_t)
+        rolling_t = vwin.rolling_bpm_fft(
+            means_t[:, cfg.channel], clip.fps, cfg.band,
+            cfg.window_len(clip.fps), cfg.acquisition_len(clip.fps))
+        truthroi_bpm = rolling_t.bpm.cpu().numpy()
+
+        ref = cpu_reference_green_avg(green, clip.fps, cfg.window_seconds,
+                                      cfg.acquisition_seconds, cfg.band)
+        idx = sorted(set(ref) & set(np.nonzero(port_valid)[0].tolist()))
+        rows.append({
+            "spec": dataclasses.asdict(spec),
+            "frames_compared": len(idx),
+            "mae_tpu_vs_cpu_reference": float(np.mean(
+                [abs(port_bpm[i] - ref[i]) for i in idx])),
+            "mae_tpu_vs_truth": float(np.mean(
+                [abs(port_bpm[i] - clip.bpm_truth[i]) for i in idx])),
+            "mae_cpu_reference_vs_truth": float(np.mean(
+                [abs(ref[i] - clip.bpm_truth[i]) for i in idx])),
+            "mae_detector_vs_truth_roi": float(np.mean(
+                [abs(port_bpm[i] - truthroi_bpm[i]) for i in idx])),
+        })
+    return rows
