@@ -50,11 +50,24 @@ Phases, each of which must pass (any failure exits non-zero):
    chunks, the last 192 frames) in the detect-then-reduce form (ROI means
    on K3) and the fused form (one K1 launch per chunk, carry on the card):
    each equal to the port's whole-clip pass in the same form on the
-   read-back frames; then ``measure_green_avg_file`` (fused): >= 95% of
-   post-acquisition frames valid, BPM MAE at most 0.5 against the numpy
-   reference on its green trace.  Prints frames/s from the file (decode
-   included), the decode-or-device verdict and the peak device memory of
-   the streaming and whole-clip calls;
+   read-back frames.  The fused stream again with 4 cv2 decoders: equal
+   bit for bit to one decoder's, K1 once a chunk; the reader alone with 1
+   and 4 decoders (frames/s, pinned bytes) and an mp4v copy of the clip's
+   first 240 frames read with 1 and 4 decoders (equal bytes: the seeks of
+   an inter-frame codec).  Then I420 staging: the card's
+   ``i420_to_bgr_flat`` equal bit for bit to cv2's ``COLOR_YUV2BGR_I420``
+   of the host's ``COLOR_BGR2YUV_I420`` planes on all 960 frames; the
+   fused I420 stream (K1 once a chunk) equal bit for bit to
+   ``extract_signals_fused`` on those rebuilt frames, the detect I420
+   stream (plane means, no K3) with the same ``valid`` as the whole-clip
+   detect pass on them and means within 1.5 u8; each I420 stream >= 95 %
+   of post-acquisition frames valid with BPM MAE <= 0.5 against the numpy
+   reference on its own trace.  Then ``measure_green_avg_file`` (fused):
+   >= 95% of post-acquisition frames valid, BPM MAE at most 0.5 against
+   the numpy reference on its green trace.  Prints frames/s from the file
+   (decode included), the decode-or-device verdict and the peak device
+   memory of every stream and of the whole-clip calls, and the
+   reconstruction's and the plane means' times on one chunk;
 7. the Eulerian colour-magnification (EVM) path at 1080p.  K6 (blur,
    decimate, YIQ) and K7 (upsample, add, u8 reconstruction) against their
    plain versions on the flagship clip's first 64 frames and on a 720p
@@ -95,7 +108,22 @@ Phases, each of which must pass (any failure exits non-zero):
    and detection alone, fused and unfused, the card's busy share in one
    profiled run of the fused measure; K5 per stage, its plain version and
    the same 25 ops unfused (cuDNN, op by op);
-9. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
+9. the live pipeline: one 720p subject of the pool's population, 760
+   frames, ``LiveConfig(fps=30, use_fused=True)``, through ``LivePipeline``
+   on the card in four modes (BGR, I420 frames from ``bgr_to_i420_host``,
+   ``fetch_every=4``, ``frames_per_call=8``): K4 once a frame in each,
+   every output equal bit for bit to the sequential ``make_step`` output of
+   the same transfer, the last BPM valid within 8 BPM of the truth; K4
+   equal bit for bit to its plain version at that one slot, on the
+   carries and phases the sequential step gives it (BGR, I420, and I420
+   with the live app's ``--fused`` row pool 8 and gate 0.15), and K4's
+   time there against its bound; the
+   latency from submit to returned output (p50, p90) and the host-to-card
+   bytes a frame of each mode; then 100 submits under ``torch.profiler``
+   with ``torch.cuda.set_sync_debug_mode("warn")``, which must flag no
+   synchronizing operation (a submit waits for the card only at its
+   fetch, an event wait: the host waits the profiler sees are logged);
+10. the serving pool at full width: ``BpmServer(LiveConfig(fps=30,
    use_fused=True), n_slots=64)`` on 720p frames made on the card, one tick
    at a time for 760 ticks.  Each slot has its own pulse rate (55-110 BPM)
    and sway phase; slots attach in a staggered order, one slot skips every
@@ -108,32 +136,48 @@ Phases, each of which must pass (any failure exits non-zero):
    with ``method="adaptive"``: K4 launched, every slot valid within 8 BPM,
    the two slots' BPM, validity and choice equal to the single step's on
    >= 99% of ticks, and every slot's last BPM, validity and choice equal to
-   the port's method on the CPU from the pool's rings;
-10. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
+   the port's method on the CPU from the pool's rings.  Then a fused pool
+   with ``transfer="i420"`` beside a BGR one on the same 64 x 720p frames
+   for 100 ticks: K4 launched in both, ``face_valid`` equal on every tick,
+   ``green_raw`` within 1.5 u8; the median tick wall time of each;
+11. a server that answers requests: ``serve_forever`` on a 4-slot fused 720p
    pool, two ``BpmClient``s and one ``WsBpmClient`` stream 700 frames each
    and must get one JSON line per frame, the last ``bpm_valid`` within 8 BPM
-   of the truth; then 10 one-frame round trips each.  K4 is then launched
-   twice more on the fused pool's last frames and state and must give the
-   same bits both times (each launch leaves its accumulators clean);
-11. time each pool tick (device time, and wall time with the host-to-card
-   upload and the fetch) and each kernel against its plain version, with
+   of the truth; then 10 one-frame round trips each.  Then one
+   ``BpmClient(transfer="i420")`` against a 4-slot I420 server for 700
+   frames: one line per frame, the last ``bpm_valid`` within 8 BPM;
+12. the apps: ``apps.rppg_livestream.main(["--video", ..., "--no-display",
+   "--fused", "--transfer", "i420"])`` on the live subject written as MJPG
+   must exit 0 with the median of its last 60 printed BPM within 8 BPM of
+   the truth; ``apps.serve_bpm.main(["--connect", ..., "--video", ...,
+   "--max-frames", "200"])`` against a served I420 pool must exit 0 and
+   print ``sent 200 frames``;
+13. launch K4 twice more on the fused pool's last frames and state, which
+   must give the same bits both times (each launch leaves its accumulators
+   clean), and time each pool tick (device time, and wall time with the
+   host-to-card upload and the fetch) and each kernel against its plain
+   version, with
    CUDA events (median of 3 after a warm-up; K4 with the card kept busy
    while the host enqueues its calls, also with row pooling and with
    gating, and the kernels ``torch.profiler`` sees in 20 calls of
    each, which must be one a call); both offline forms are timed
    right after phase 4, the fused one again at the end, and the EVM path
-   right after phase 7.
+   right after phase 7; K1 also on one 256-frame chunk, as the streams
+   launch it.
 
 The launch counters are set to 0 just before each of the main paths (the
-offline measure, each call of the other measures, the two streams and the
-file measure, ``magnify``, the EVM measure, the MediaPipe measure, the
-fused pool, the skin pool, the adaptive pool, the server)
+offline measure, each call of the other measures, each stream and the
+file measure, ``magnify``, the EVM measure, the MediaPipe measure, each
+mode of the live pipeline, the fused pool, the skin pool, the adaptive
+pool, the I420 pool pair, the servers, the live app)
 and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
-and the skin pool.  The record's launches: K1's in the offline run and the
-other measures' fused calls, K2's in the offline run, the other measures'
-``"roi"`` calls, the MediaPipe measure and the skin pool, K4's in the fused
-and the adaptive pool.  K2's time is at 1080p x 960, and its time
+and the skin pool.  The record's launches: K1's in the offline run, the
+other measures' fused calls, the 4-decoder stream and the fused I420
+stream, K2's in the offline run, the other measures' ``"roi"`` calls, the
+MediaPipe measure and the skin pool, K3's in the detect stream, K4's in the
+fused and the adaptive pool, the live pipeline's four modes and the I420
+pool pair.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
 logged with their bounds.
 The line before the last is the kernels' JSON record: per kernel its time
@@ -184,8 +228,20 @@ BPM_TOL = 8.0          # the JAX package's serving tests' bound
 EVM_T, EVM_BPM, EVM_CHECK_T = 600, 55.0, 64
 K6_ATOL, K7_MAX_FRAC = 1e-6, 1e-3
 EVM_MAE_TOL = 4.0      # tests/test_evm.py's bound
-# Streaming ingest: 960 frames in chunks of 256 (the last one 192).
+# Streaming ingest: 960 frames in chunks of 256 (the last one 192); the
+# multi-decoder stream with 4 cv2 decoders, and an mp4v copy of the clip's
+# first 240 frames (an inter-frame codec, whose seeks the decoders rely on)
+# read in chunks of 32.
 STREAM_CHUNK = 256
+DECODERS, MP4V_T, MP4V_CHUNK = 4, 240, 32
+I420_TOL = 1.5         # u8: plane means against reconstruct-then-reduce
+# The live pipeline: one 720p subject, 760 frames, four modes; the
+# profiled window of submits after a warm-up.
+LIVE_FRAMES, LIVE_WARM, LIVE_PROFILED = 760, 40, 100
+# The I420 pool beside the BGR pool: 64 x 720p for 100 ticks.
+I420_TICKS = 100
+# The served pool's client in client mode: 200 frames of the subject.
+APP_CLIENT_FRAMES = 200
 # The MediaPipe phase: tests/test_mediapipe_face.py's schematic face drawn
 # 4.2x its size at 1080p (BlazeFace scores it ~0.87 there), swaying 3 px.
 MP_SCALE, MP_SWAY = 4.2, 3
@@ -803,6 +859,546 @@ def run_measures(dev, frames, cfg) -> dict:
     return launches
 
 
+def peak_of(fn):
+    """(fn's result, device bytes above what was allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
+def bpm_check(dev, name: str, bgr, valid, cfg) -> dict:
+    """The rolling FFT BPM of a ``(T, 3)`` trace on the card: >= 95 % of
+    post-acquisition frames valid, MAE <= 0.5 against the numpy reference
+    on the trace's own green."""
+    import torch
+    from vhr_tpu_torch.ops import windows as vwin
+    from vhr_tpu_torch.pipeline import offline
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+    acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
+    valid_t = torch.as_tensor(valid)
+    green = offline._fill_invalid(torch.as_tensor(bgr[:, cfg.channel]),
+                                  valid_t)
+    rolling = vwin.rolling_bpm_fft(green.to(dev), FPS, cfg.band, win, acq)
+    bpm = rolling.bpm.cpu().numpy()
+    ok = (rolling.valid.cpu() & valid_t).numpy()
+    ref = cpu_reference_green_avg(green.numpy(), FPS, cfg.window_seconds,
+                                  cfg.acquisition_seconds, cfg.band)
+    expect = len(bpm) - acq + 1
+    idx = [i for i in ref if ok[i]]
+    mae = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
+           if idx else math.inf)
+    log(f"[stream] {name}: valid {int(ok.sum())}/{expect} frames from the "
+        f"end of the acquisition; BPM MAE vs numpy reference {mae:.4f} over "
+        f"{len(idx)} frames; vs {TRUTH_BPM:g} truth "
+        f"{float(abs(bpm[ok] - TRUTH_BPM).mean()):.4f}")
+    if ok.sum() < 0.95 * expect or mae > 0.5 or len(idx) < 0.95 * ok.sum():
+        raise AssertionError(f"{name}: {int(ok.sum())} valid of {expect}, "
+                             f"MAE {mae}")
+    return dict(valid=int(ok.sum()), mae=mae)
+
+
+def run_decoders(dev, path: str, cfg, ref: dict, back) -> dict:
+    """The fused stream with DECODERS cv2 decoders against one decoder's
+    (equal bits), the reader alone with 1 and DECODERS decoders (decode
+    rate, pinned bytes), and an mp4v copy of the clip read with 1 and
+    DECODERS decoders (equal bytes)."""
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.ops import fused_cuda
+    from vhr_tpu_torch.pipeline import offline
+
+    n_chunks = -(-T // STREAM_CHUNK)
+    fused_cuda.LAUNCHES = 0
+    ring = {}
+    t0 = time.perf_counter()
+    (bgr, valid, _), s_peak = peak_of(
+        lambda: offline.extract_signals_streaming(
+            path, cfg, chunk_frames=STREAM_CHUNK, use_fused=True,
+            detect_row_pool=8, n_decoders=DECODERS, ring_stats=ring))
+    wall = time.perf_counter() - t0
+    launches = fused_cuda.LAUNCHES
+    log(f"[stream] fused, {DECODERS} decoders: K1 launches {launches}; {T} "
+        f"frames in {wall:.2f} s = {T / wall:.1f} frames/s from the file "
+        f"(1 decoder: {ref['fps']:.1f}); ring {ring}; peak device memory "
+        f"{s_peak / 1e9:.3f} GB; os.cpu_count() {os.cpu_count()}")
+    if launches != n_chunks:
+        raise AssertionError(f"{DECODERS}-decoder stream: K1 launched "
+                             f"{launches} times")
+    if not (np.array_equal(bgr, ref["bgr"])
+            and np.array_equal(valid, ref["valid"])):
+        raise AssertionError(f"the {DECODERS}-decoder stream differs from "
+                             f"one decoder's")
+    decode = {}
+    for n in (1, DECODERS):
+        t0 = time.perf_counter()
+        with vio.ChunkReader(path, STREAM_CHUNK, dev, n_decoders=n) as r:
+            got = sum(c.shape[0] for c, _ in r)
+            torch.cuda.synchronize()
+            pinned, workers = r.pinned_bytes, r.n_workers
+        dt = time.perf_counter() - t0
+        decode[n] = dict(fps=got / dt, pinned=pinned, workers=workers)
+        log(f"[stream] ChunkReader alone, {workers} decoder(s): {got} frames "
+            f"to the card in {dt:.2f} s = {got / dt:.1f} frames/s; pinned "
+            f"host memory {pinned / 1e9:.3f} GB")
+        if got != T:
+            raise AssertionError(f"the reader gave {got} frames")
+    mp4 = os.path.join(os.path.dirname(path), "head.mp4")
+    vio.write_video(back[:MP4V_T], mp4, FPS, fourcc="mp4v")
+    reads = {}
+    for n in (1, DECODERS):
+        with vio.ChunkReader(mp4, MP4V_CHUNK, "cpu", n_decoders=n) as r:
+            reads[n] = [(c.numpy().copy(), st) for c, st in r]
+    same = (len(reads[1]) == len(reads[DECODERS]) and all(
+        sa == sb and np.array_equal(a, b)
+        for (a, sa), (b, sb) in zip(reads[1], reads[DECODERS])))
+    log(f"[stream] mp4v, {MP4V_T} frames in chunks of {MP4V_CHUNK}: "
+        f"{DECODERS} decoders == 1 decoder: {same} "
+        f"({sum(len(c) for c, _ in reads[1])} frames)")
+    if not same:
+        raise AssertionError("mp4v: the decoders' chunks differ from one "
+                             "decoder's")
+    return dict(launches=launches, fps=T / wall, ring=ring, peak=s_peak,
+                decode=decode)
+
+
+def run_i420(dev, path: str, cfg, back, ref: dict) -> dict:
+    """I420 staging: the card's reconstruction against cv2's on the host,
+    both forms of the I420 stream against the whole-clip passes on the
+    cv2-rebuilt frames, their BPM, frames/s and peak memory."""
+    import cv2
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.ops import color, fused_cuda, roi_means_cuda
+    from vhr_tpu_torch.pipeline import offline
+
+    n_chunks = -(-T // STREAM_CHUNK)
+    rebuilt = np.empty_like(back)
+    t0 = time.perf_counter()
+    for s in range(0, T, 64):
+        planes = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2YUV_I420)
+                           for f in back[s:s + 64]])
+        for i, pl in enumerate(planes):
+            rebuilt[s + i] = cv2.cvtColor(pl, cv2.COLOR_YUV2BGR_I420)
+        got = color.i420_to_bgr_flat(torch.from_numpy(planes).to(dev), H, W)
+        got = got.reshape(-1, H, W, 3).cpu().numpy()
+        if not np.array_equal(got, rebuilt[s:s + 64]):
+            raise AssertionError(
+                f"i420_to_bgr_flat differs from cv2 on "
+                f"{int((got != rebuilt[s:s + 64]).sum())} bytes of frames "
+                f"{s}-{s + len(planes) - 1}")
+    log(f"[stream] i420_to_bgr_flat on the card == cv2 COLOR_YUV2BGR_I420 "
+        f"on the host, bit for bit, {T} frames of {W}x{H} "
+        f"({time.perf_counter() - t0:.1f} s with the host conversions)")
+    x = torch.from_numpy(rebuilt).to(dev)
+    whole = {"fused": offline.extract_signals_fused(x, cfg,
+                                                    detect_row_pool=8),
+             "detect": offline.extract_signals(x, cfg, use_pallas="roi")}
+    planes = torch.from_numpy(np.stack([
+        cv2.cvtColor(f, cv2.COLOR_BGR2YUV_I420)
+        for f in back[:STREAM_CHUNK]])).to(dev)
+    rois = whole["detect"].rois[:STREAM_CHUNK]
+    times = {"recon": cuda_ms(lambda: color.i420_to_bgr_flat(planes, H, W)),
+             "means": cuda_ms(lambda: color.i420_roi_means(planes, rois, H,
+                                                           W))}
+    del x, planes
+    log(f"[time] on one {STREAM_CHUNK}-frame chunk of {W}x{H}: "
+        f"i420_to_bgr_flat {times['recon']:.3f} ms, i420_roi_means "
+        f"{times['means']:.3f} ms (plain PyTorch, CUDA events)")
+    out = dict(times=times)
+    for form, kw in (("fused", dict(use_fused=True, detect_row_pool=8)),
+                     ("detect", {})):
+        fused_cuda.LAUNCHES = roi_means_cuda.BATCHED_LAUNCHES = 0
+        ring = {}
+        t0 = time.perf_counter()
+        (bgr, valid, _), s_peak = peak_of(
+            lambda: offline.extract_signals_streaming(
+                path, cfg, chunk_frames=STREAM_CHUNK, transfer="i420",
+                ring_stats=ring, **kw))
+        wall = time.perf_counter() - t0
+        k1, k3 = fused_cuda.LAUNCHES, roi_means_cuda.BATCHED_LAUNCHES
+        tr = whole[form]
+        w_bgr, w_valid = tr.bgr.cpu().numpy(), tr.valid.cpu().numpy()
+        err = float(np.abs(bgr - w_bgr).max())
+        log(f"[stream] I420 {form}: K1 launches {k1}, K3 {k3}; {T} frames "
+            f"in {wall:.2f} s = {T / wall:.1f} frames/s from the file (BGR "
+            f"{ref[form]['fps']:.1f}); peak device memory "
+            f"{s_peak / 1e9:.3f} GB (BGR {ref[form]['peak'] / 1e9:.3f}); "
+            f"ring {ring}; == whole clip on the rebuilt frames: valid "
+            f"{np.array_equal(valid, w_valid)}, means max |err| {err:.3g}")
+        if form == "fused":
+            if k1 != n_chunks or k3:
+                raise AssertionError(f"I420 fused stream: K1 launched {k1} "
+                                     f"times")
+            if not (np.array_equal(bgr, w_bgr)
+                    and np.array_equal(valid, w_valid)):
+                raise AssertionError("the I420 fused stream differs from "
+                                     "the whole-clip pass on the rebuilt "
+                                     "frames")
+        elif k1 or k3 or not np.array_equal(valid, w_valid) \
+                or err > I420_TOL:
+            raise AssertionError(f"I420 detect stream: K3 {k3}, valid "
+                                 f"equal {np.array_equal(valid, w_valid)}, "
+                                 f"means max |err| {err}")
+        out[form] = dict(launches=k1, fps=T / wall, peak=s_peak, err=err,
+                         ring=ring, bpm=bpm_check(dev, f"I420 {form} stream",
+                                                  bgr, valid, cfg))
+    return out
+
+
+def subject_frames(subj, n: int):
+    """Subject 0's first ``n`` frames as host ``(n, h, w, 3)`` u8, made on
+    the card 64 at a time."""
+    import numpy as np
+
+    return np.concatenate([
+        subj.frames([0] * len(ks), ks).cpu().numpy()
+        for ks in (list(range(s, min(s + 64, n))) for s in range(0, n, 64))])
+
+
+def run_live(dev) -> dict:
+    """``LivePipeline`` on one 720p subject in four modes against the
+    sequential step (shifted, equal bits), K4 launched in each, the last
+    BPM within BPM_TOL; per-frame latency and host-to-card bytes; one
+    profiled window of submits with sync debugging on.  K4 against its
+    plain version (equal bits) at the one slot the step gives it, on the
+    carries and phases of the sequential runs and of the live app's
+    ``--fused`` configuration, and K4's time there."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from vhr_tpu_torch.ops import fused_cuda
+    from vhr_tpu_torch.pipeline import live
+
+    cfg = live.LiveConfig(fps=FPS, use_fused=True)
+    subj = Subjects(dev, 1, PH, PW, SEED + 6)
+    bgr = subject_frames(subj, LIVE_FRAMES)
+    planar = np.stack([live.bgr_to_i420_host(f) for f in bgr])
+    truth = float(subj.bpm[0])
+    fields = live.LiveOutput._fields
+
+    # K4's inputs as the live step gives them (one slot, the step's own
+    # carries and phases) on the first ticks and every 25th after them.
+    k4_kw = {}
+    captured = {}
+    k4_live = live.fused_detect_roi_slots
+
+    def capture(frames, carry, phase, **kw):
+        if k4_kw["tick"] < 16 or k4_kw["tick"] % 25 == 0:
+            captured[k4_kw["tag"]].append(
+                (frames.clone(), carry.clone(), phase.clone(), kw))
+        return k4_live(frames, carry, phase, **kw)
+
+    def sequential(frames, transfer, step_cfg=cfg, tag=None):
+        st = live.init_state(step_cfg, dev)
+        stp = live.make_step(step_cfg, transfer=transfer)
+        vecs = []
+        k4_kw["tag"] = tag or f"{transfer}, default"
+        captured[k4_kw["tag"]] = []
+        live.fused_detect_roi_slots = capture
+        try:
+            for i, f in enumerate(frames):
+                k4_kw["tick"] = i
+                st, o = stp(st, torch.from_numpy(f).to(dev))
+                vecs.append(live.pack_output(o))
+        finally:
+            live.fused_detect_roi_slots = k4_live
+        return [live.unpack_output(a) for a in torch.stack(vecs).cpu()
+                .numpy()]
+
+    ref = {"bgr": sequential(bgr, "bgr"), "i420": sequential(planar, "i420")}
+    # The live app's --fused configuration: pooled detection rows, gate.
+    app_cfg = dataclasses.replace(cfg, detect_row_pool=8, gate_margin=0.15)
+    sequential(planar, "i420", app_cfg, "i420, the app's pool and gate")
+    k4_err = 0.0
+    for tag, calls in captured.items():
+        for frames, carry, phase, kw in calls:
+            got, got_c = fused_cuda.fused_detect_roi_slots(
+                frames, carry, phase, **kw)
+            want, want_c = fused_cuda.fused_detect_roi_slots_plain(
+                frames, carry, phase, **kw)
+            torch.cuda.synchronize()
+            same_bits(f"K4 live {tag}", tuple(got) + (got_c,),
+                      tuple(want) + (want_c,))
+            k4_err = max(k4_err, compare(f"K4 live {tag}",
+                                         tuple(got) + (got_c,),
+                                         tuple(want) + (want_c,)))
+        n_det = sum(int(c[1][0, 5]) for c in calls)
+        log(f"[check] K4 == plain at one {PW}x{PH} live slot ({tag}): "
+            f"{len(calls)} ticks of the step's own carries and phases "
+            f"(face tracked on {n_det} of them), same bits")
+    frames, carry, phase, kw = captured["i420, the app's pool and gate"][-1]
+    k4_one = {}
+    for name, args in (("default", {}), ("the app's pool and gate", kw)):
+        k4_one[name] = (
+            cuda_ms(lambda a=args: fused_cuda.fused_detect_roi_slots(
+                frames, carry, phase, **a), inner=10, queue_ahead=True),
+            cuda_ms(lambda a=args: fused_cuda.fused_detect_roi_slots(
+                frames, carry, phase, **a), inner=10),
+            cuda_ms(lambda a=args: fused_cuda.fused_detect_roi_slots_plain(
+                frames, carry, phase, **a)))
+    k4_bound = bound(PH * PW * 3 + (24 + 4 + 34 + 24), 20 * PH * PW)
+    log("[time] K4 at one live slot of " + f"{PW}x{PH}: " + "; ".join(
+        f"{name} {q:.4f} ms the queue filled ahead, {pc:.4f} ms paced by "
+        f"the host, plain {pl:.3f} ms" for name, (q, pc, pl) in
+        k4_one.items()) + f"; bound {k4_bound[0]:.6f} ms ({k4_bound[1]})")
+    modes = [("bgr", {}), ("i420", dict(transfer="i420")),
+             ("fetch_every=4", dict(fetch_every=4)),
+             ("frames_per_call=8", dict(frames_per_call=8))]
+    out = {}
+    for name, kw in modes:
+        transfer = kw.get("transfer", "bgr")
+        src = planar if transfer == "i420" else bgr
+        fused_cuda.SLOT_LAUNCHES = 0
+        pipe = live.LivePipeline(cfg, **kw)
+        sent, outs, lat = [], [], []
+
+        def take(o, now):
+            for x in (o if isinstance(o, list) else
+                      [] if o is None else [o]):
+                lat.append((now - sent[len(outs)]) * 1e3)
+                outs.append(x)
+
+        t0 = time.perf_counter()
+        for f in src:
+            sent.append(time.perf_counter())
+            o = pipe.submit(f)
+            take(o, time.perf_counter())
+        take(pipe.flush(), time.perf_counter())
+        wall = time.perf_counter() - t0
+        launches = fused_cuda.SLOT_LAUNCHES
+        want = ref[transfer]
+        same = len(outs) == len(want) and all(
+            np.array_equal(np.asarray(getattr(a, k)), np.asarray(getattr(b,
+                                                                         k)))
+            for a, b in zip(outs, want) for k in fields)
+        last = outs[-1]
+        p50, p90 = np.percentile(lat, [50, 90])
+        log(f"[live] {name}: {len(outs)} outputs in {wall:.2f} s "
+            f"({LIVE_FRAMES / wall:.1f} frames/s); K4 launches {launches}; "
+            f"== sequential step: {same}; latency submit to output p50 "
+            f"{p50:.3f} ms p90 {p90:.3f} ms; host-to-card "
+            f"{pipe.h2d_bytes / LIVE_FRAMES:.0f} bytes/frame; last BPM "
+            f"{float(last.bpm):.3f} (valid {bool(last.bpm_valid)}) vs truth "
+            f"{truth:.3f}")
+        if launches != LIVE_FRAMES or not same or not bool(last.bpm_valid) \
+                or abs(float(last.bpm) - truth) > BPM_TOL:
+            raise AssertionError(f"live {name}: K4 {launches}, equal "
+                                 f"{same}, last {last}")
+        out[name] = dict(p50=p50, p90=p90, fps=LIVE_FRAMES / wall,
+                         h2d=pipe.h2d_bytes / LIVE_FRAMES, launches=launches)
+
+    # One profiled window of submits: the host's waits for the card inside
+    # it (the profiler's own synchronize on exit falls outside).
+    pipe = live.LivePipeline(cfg)
+    for f in bgr[:LIVE_WARM]:
+        pipe.submit(f)
+    torch.cuda.synchronize()
+    window = bgr[LIVE_WARM:LIVE_WARM + LIVE_PROFILED]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("submits"):
+                    for f in window:
+                        pipe.submit(f)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pipe.flush()
+    syncs = [str(w.message) for w in caught
+             if "synchronizing" in str(w.message).lower()]
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "submits")
+    counts, outside, n_kernels = {}, {}, 0
+    for e in events:
+        inside = span.start <= e.time_range.start <= span.end
+        if "Synchronize" in e.name or e.name == "cudaMemcpy":
+            side = counts if inside else outside
+            side[e.name] = side.get(e.name, 0) + 1
+        n_kernels += inside and e.name in ("cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaLaunchKernelExC")
+    log(f"[live] profiled {LIVE_PROFILED} submits: host waits for the card "
+        f"inside the submits {counts} ({LIVE_PROFILED} fetches; outside "
+        f"them {outside}), {n_kernels} kernel launches; synchronizing "
+        f"operations flagged by torch.cuda.set_sync_debug_mode: "
+        f"{len(syncs)}")
+    if syncs or set(counts) - {"cudaEventSynchronize"} \
+            or counts.get("cudaEventSynchronize", 0) > LIVE_PROFILED:
+        raise AssertionError(f"a submit waited for the card outside its "
+                             f"fetch: {counts}, {syncs[:3]}")
+    out["profile"] = dict(counts=counts, kernels=n_kernels)
+    out["bgr_frames"], out["truth"] = bgr, truth
+    out["k4_err"] = k4_err
+    return out
+
+
+def run_pool_i420(dev) -> dict:
+    """The 64 x 720p fused pool with ``transfer="i420"`` beside the BGR pool
+    on the same frames for I420_TICKS ticks: K4 launched, ``face_valid``
+    equal on every tick, ``green_raw`` within I420_TOL; the tick wall
+    times."""
+    import numpy as np
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.ops import fused_cuda
+    from vhr_tpu_torch.pipeline import live
+
+    cfg = live.LiveConfig(fps=FPS, use_fused=True)
+    pools = {t: serving.BpmServer(cfg, n_slots=SLOTS, transfer=t)
+             for t in ("bgr", "i420")}
+    for pool in pools.values():
+        for _ in range(SLOTS):
+            pool.attach()
+    subj = Subjects(dev, SLOTS, PH, PW, SEED + 7)
+    fused_cuda.SLOT_LAUNCHES = 0
+    walls = {"bgr": [], "i420": []}
+    worst, face_same = 0.0, True
+    for t in range(I420_TICKS):
+        frames = subj.frames(range(SLOTS), [t] * SLOTS).cpu().numpy()
+        send = {"bgr": {s: frames[s] for s in range(SLOTS)},
+                "i420": {s: live.bgr_to_i420_host(frames[s])
+                         for s in range(SLOTS)}}
+        outs = {}
+        for k, pool in pools.items():
+            t0 = time.perf_counter()
+            outs[k] = pool.tick(send[k])
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+        for s in range(SLOTS):
+            a, b = outs["bgr"][s], outs["i420"][s]
+            face_same &= bool(a.face_valid) == bool(b.face_valid)
+            worst = max(worst, abs(float(a.green_raw) - float(b.green_raw)))
+    launches = fused_cuda.SLOT_LAUNCHES
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[pool i420] {SLOTS} x {PW}x{PH}, {I420_TICKS} ticks beside the BGR "
+        f"pool: K4 launches {launches}; face_valid equal on every tick "
+        f"{face_same}; green_raw max |diff| {worst:.4f} u8; tick wall time "
+        f"(host copy into pinned memory, upload, tick, fetch) median: BGR "
+        f"{med['bgr']:.3f} ms, I420 {med['i420']:.3f} ms")
+    if launches != 2 * I420_TICKS or not face_same or worst > I420_TOL:
+        raise AssertionError(f"I420 pool: K4 {launches}, face_valid equal "
+                             f"{face_same}, green_raw |diff| {worst}")
+    return dict(launches=launches, wall=med, worst=worst)
+
+
+def run_server_i420(dev) -> dict:
+    """One ``BpmClient(transfer="i420")`` against a 4-slot fused I420 pool
+    behind ``serve_forever``: one line per frame, in order, the last
+    ``bpm_valid`` within BPM_TOL."""
+    import numpy as np
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.pipeline import live
+
+    pool = serving.BpmServer(live.LiveConfig(fps=FPS, use_fused=True),
+                             n_slots=4, transfer="i420")
+    subj = Subjects(dev, 1, PH, PW, SEED + 8)
+    planar = [live.bgr_to_i420_host(f)
+              for f in subject_frames(subj, SERVE_FRAMES)]
+    srv = serving.serve_forever("127.0.0.1", 0, pool, frame_shape=(PH, PW))
+    try:
+        t0 = time.perf_counter()
+        c = serving.BpmClient("127.0.0.1", srv.server_address[1],
+                              transfer="i420")
+        lines = []
+        reader = threading.Thread(
+            target=lambda: lines.extend(c.recv() for _ in planar))
+        reader.start()
+        for f in planar:
+            c.send(f)
+        reader.join(timeout=600)
+        c.close()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    truth = float(subj.bpm[0])
+    end = lines[-1] if lines else {}
+    log(f"[server i420] 1 client x {SERVE_FRAMES} frames of {PW}x{PH} I420 "
+        f"({planar[0].nbytes} bytes each) in {wall:.2f} s "
+        f"({SERVE_FRAMES / wall:.1f} frames/s); last line {end} vs truth "
+        f"{truth:.3f}")
+    if [ln.get("seq") for ln in lines] != list(range(SERVE_FRAMES)) \
+            or not end.get("bpm_valid") or abs(end["bpm"] - truth) > BPM_TOL:
+        raise AssertionError(f"I420 server: {len(lines)} lines, last {end}")
+    return dict(wall=wall)
+
+
+def run_apps(dev, frames, truth: float) -> dict:
+    """The live app (``--fused --transfer i420``) on the live subject as an
+    MJPG file, and the serving app's client mode against a served I420
+    pool; both on the card."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.ops import fused_cuda
+    from vhr_tpu_torch.pipeline import live
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "subject.avi")
+        vio.write_video(frames, path, FPS, fourcc="MJPG")
+        fused_cuda.SLOT_LAUNCHES = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = rppg_livestream.main(["--video", path, "--no-display",
+                                       "--fused", "--transfer", "i420"])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue().splitlines()
+        bpms = [float(ln.split(":")[1]) for ln in text
+                if ln.startswith("Bpm after filtering")]
+        med = float(np.median(bpms[-60:])) if bpms else math.nan
+        log(f"[apps] rppg_livestream --fused --transfer i420: exit {rc} in "
+            f"{wall:.1f} s; K4 launches {fused_cuda.SLOT_LAUNCHES}; "
+            f"{len(bpms)} BPM lines, median of the last 60 {med:.3f} vs "
+            f"truth {truth:.3f}; its last line: {text[-1] if text else ''}")
+        if rc != 0 or fused_cuda.SLOT_LAUNCHES < 1 or len(bpms) < 60 \
+                or abs(med - truth) > BPM_TOL:
+            raise AssertionError(f"rppg_livestream: exit {rc}, median "
+                                 f"{med}")
+        out["livestream"] = dict(wall=wall, median=med)
+
+        pool = serving.BpmServer(live.LiveConfig(fps=FPS, use_fused=True),
+                                 n_slots=4, transfer="i420")
+        srv = serving.serve_forever("127.0.0.1", 0, pool,
+                                    frame_shape=(PH, PW))
+        buf = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = serve_bpm.main(["--connect",
+                                     f"127.0.0.1:{srv.server_address[1]}",
+                                     "--video", path, "--max-frames",
+                                     str(APP_CLIENT_FRAMES)])
+            wall = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        text = buf.getvalue().splitlines()
+        log(f"[apps] serve_bpm --connect: exit {rc} in {wall:.1f} s; "
+            f"{text[0] if text else ''} ... {text[-1] if text else ''}")
+        if rc != 0 or f"sent {APP_CLIENT_FRAMES} frames" not in text \
+                or any("server error" in ln for ln in text):
+            raise AssertionError(f"serve_bpm client mode: exit {rc}, "
+                                 f"{text[-3:]}")
+        out["client"] = dict(wall=wall)
+    return out
+
+
 def run_streaming(dev, frames, cfg) -> dict:
     """Streaming ingest of the flagship clip from an MJPG file: both forms
     of ``extract_signals_streaming`` against the whole-clip passes on the
@@ -817,15 +1413,6 @@ def run_streaming(dev, frames, cfg) -> dict:
 
     n_chunks = -(-T // STREAM_CHUNK)
     out = {}
-
-    def peak_of(fn):
-        """(fn's result, device bytes above what was allocated before)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, torch.cuda.max_memory_allocated() - base
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flagship.avi")
@@ -890,6 +1477,8 @@ def run_streaming(dev, frames, cfg) -> dict:
                              peak=s_peak, whole_peak=w_peak, bgr=bgr,
                              valid=valid)
 
+        out["decoders"] = run_decoders(dev, path, cfg, out["fused"], back)
+        out["i420"] = run_i420(dev, path, cfg, back, out)
         fused_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         _, bpm, valid = offline.measure_green_avg_file(
@@ -1751,11 +2340,14 @@ def main() -> int:
     for k, n in measures.items():
         launches[k] += n
 
-    # 6. Streaming ingest from a file, counters from 0 before each form.
+    # 6. Streaming ingest from a file, counters from 0 before each form:
+    # one decoder, DECODERS decoders, I420 staging.
     t0 = time.perf_counter()
     stream = run_streaming(dev, frames, cfg)
     log(f"[stream] phase in {time.perf_counter() - t0:.1f} s")
     launches["K3"] = stream["detect"]["launches"]
+    launches["K1"] += (stream["decoders"]["launches"]
+                       + stream["i420"]["fused"]["launches"])
 
     # 7. The EVM path: kernels against plain, magnify, the EVM measure.
     evm_checks = check_evm_kernels(dev, frames)
@@ -1772,8 +2364,17 @@ def main() -> int:
     log(f"[mediapipe] phase in {time.perf_counter() - t0:.1f} s")
     launches["K5"] = mp_run["launches"]["K5"]
 
-    # 9. The serving pool, fused then skin-detector ticks, then the fused
-    # tick under the adaptive method, counters from 0.
+    # 9. The live pipeline (K4), counters from 0 before each mode.
+    t0 = time.perf_counter()
+    live_run = run_live(dev)
+    log(f"[live] phase in {time.perf_counter() - t0:.1f} s")
+    live_k4 = sum(v["launches"] for k, v in live_run.items()
+                  if isinstance(v, dict) and "launches" in v)
+    k4_err = max(k4_err, live_run["k4_err"])
+
+    # 10. The serving pool, fused then skin-detector ticks, then the fused
+    # tick under the adaptive method, then the I420 pool beside a BGR one,
+    # counters from 0.
     fused_cuda.SLOT_LAUNCHES = 0
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True)
@@ -1805,18 +2406,34 @@ def main() -> int:
     if adaptive_k4 < 1:
         raise AssertionError("K4 never launched in the adaptive pool")
     launches["K4"] += adaptive_k4
+    t0 = time.perf_counter()
+    pool_i420 = run_pool_i420(dev)
+    log(f"[pool i420] {time.perf_counter() - t0:.1f} s")
+    launches["K4"] += pool_i420["launches"] + live_k4
     # K2's launches in the record: the offline run's, the MediaPipe
     # measure's and the skin pool's.
     launches["K2"] += mp_run["launches"]["K2"] + skin_k2
 
-    # 10. The front-end, counters from 0.
+    # 11. The front-end, counters from 0: BGR clients, then an I420 one.
     fused_cuda.SLOT_LAUNCHES = 0
     served = run_server(dev)
     log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
     if fused_cuda.SLOT_LAUNCHES < 1:
         raise AssertionError("K4 never launched behind the server")
+    fused_cuda.SLOT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    run_server_i420(dev)
+    log(f"[server i420] {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"K4={fused_cuda.SLOT_LAUNCHES}")
+    if fused_cuda.SLOT_LAUNCHES < 1:
+        raise AssertionError("K4 never launched behind the I420 server")
 
-    # 11. Timing (CUDA events; frames resident on the card unless stated).
+    # 12. The apps: the live app and the serving app's client mode.
+    t0 = time.perf_counter()
+    run_apps(dev, live_run["bgr_frames"], live_run["truth"])
+    log(f"[apps] phase in {time.perf_counter() - t0:.1f} s")
+
+    # 13. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)
@@ -1864,6 +2481,18 @@ def main() -> int:
         f"ahead; {k2_paced:.4f}, {k3_paced:.4f} ms paced by the host; K3 on "
         f"a chunk of {STREAM_CHUNK} frames {k3_chunk:.4f} ms, the queue "
         f"filled ahead, bound {k3_chunk_bound:.4f} ms (bytes)")
+    # K1 as the fused streams launch it (BGR, 4 decoders, I420), on one
+    # chunk of STREAM_CHUNK: every pixel read, 3 pooling adds a pixel and
+    # ~20 operations a pooled cell's chroma test.
+    k1_chunk = cuda_ms(lambda: fused_cuda.fused_detect_roi_carry(
+        frames[:STREAM_CHUNK], carry0, **flag), reps=5, inner=10,
+        queue_ahead=True)
+    n = STREAM_CHUNK
+    k1_chunk_bound = bound(n * H * W * 3 + n * (12 + 4 + 16 + 2) + 48,
+                           3 * n * H * W + 20 * n * (H // 8) * W)
+    log(f"[time] K1 on a chunk of {n} frames (detect_row_pool=8): "
+        f"{k1_chunk:.4f} ms, the queue filled ahead, bound "
+        f"{k1_chunk_bound[0]:.4f} ms ({k1_chunk_bound[1]})")
     # K2 as the skin-detector pool tick launches it: the pool's 64 slots of
     # 720p and the cheek ROIs the tick takes from them.
     from vhr_tpu_torch.pipeline.live import LiveConfig

@@ -42,6 +42,10 @@ from vhr_tpu_torch.config import BAND_ANALYSIS
 from vhr_tpu_torch.dsp import design, filters, ica, projections, spectral
 from vhr_tpu_torch.ops import windows as twin
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 FPS = 30.0
 _DESIGNS = {"butterworth2": ("butterworth", 2), "cheby2": ("cheby2", 4),
             "butterworth4": ("butterworth", 4)}

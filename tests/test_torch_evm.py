@@ -34,6 +34,10 @@ from vhr_tpu_torch.dsp import spectral
 from vhr_tpu_torch.ops import color, evm_cuda, evm_recon_cuda
 from vhr_tpu_torch.pipeline import evm
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.as_tensor(np.asarray(x))

@@ -20,6 +20,10 @@ from vhr_tpu.utils.synth import SynthSpec, synthesize
 from vhr_tpu_torch import interop
 from vhr_tpu_torch.ops import fused_cuda
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 MEANS_TOL = dict(rtol=1e-6, atol=1e-5)
 
 

@@ -17,20 +17,26 @@ from vhr_tpu.models import mediapipe_face as jmp
 from vhr_tpu.models import tflite_exec as jexec
 from vhr_tpu.ops import pallas_meshblocks as jmb
 from vhr_tpu.models.skin_detector import SkinDetectorConfig as JaxSkinConfig
+from vhr_tpu.utils import live_plot as jlive_plot
 from vhr_tpu.utils import synth as jsynth
 from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
 import vhr_tpu_torch
 from vhr_tpu_torch import config, interop, serving
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
+from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
 from vhr_tpu_torch.dsp import design
 from vhr_tpu_torch.models import mediapipe_face as tmp
 from vhr_tpu_torch.models import tflite_exec as texec
 from vhr_tpu_torch.models.skin_detector import SkinDetectorConfig
 from vhr_tpu_torch.ops import meshblocks_cuda as tmb
-from vhr_tpu_torch.pipeline import offline
-from vhr_tpu_torch.utils import synth
+from vhr_tpu_torch.pipeline import live, offline
+from vhr_tpu_torch.utils import live_plot, synth
 from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -93,6 +99,32 @@ def test_mediapipe_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.split() == ["False", "False", "False"]
+
+
+def test_live_slice_modules_import_without_jax():
+    """The live slice's modules (the I420 ops, the profiling and plot
+    utilities, the apps) load neither jax nor any module of ``vhr_tpu`` in
+    a fresh interpreter."""
+    code = ("import sys; import vhr_tpu_torch.ops.color, "
+            "vhr_tpu_torch.utils.profiling, vhr_tpu_torch.utils.live_plot, "
+            "vhr_tpu_torch.apps.rppg_video, "
+            "vhr_tpu_torch.apps.rppg_livestream, "
+            "vhr_tpu_torch.apps.serve_bpm, vhr_tpu_torch.io.video; "
+            "print('jax' in sys.modules, any(m == 'vhr_tpu' or "
+            "m.startswith('vhr_tpu.') for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_live_plot_copy_equals_jax_package():
+    """The port's ``utils/live_plot.py`` is the JAX package's line for line
+    below its docstring."""
+    def body(mod):
+        text = Path(mod.__file__).read_text()
+        return text[text.index("from __future__"):].splitlines()
+
+    assert body(live_plot) == body(jlive_plot)
 
 
 def _stage_blocks(rng, C=8, Cm=4, n=2):
@@ -244,13 +276,24 @@ def test_cpu_reference_equals_jax_package():
         jax_reference(green, 20.0, band=jconfig.HRBand(1.01, 1.02))
 
 
+def _app(main, *argv):
+    """An app's ``main`` as an entry point taking ``device=``."""
+    def call(device=None):
+        return main(list(argv) + ([] if device is None
+                                  else ["--device", device]))
+    return call
+
+
 @pytest.mark.parametrize("entry", ["BpmServer", "evm.measure",
                                    "extract_signals_streaming",
                                    "measure_green_avg_file",
-                                   "make_mediapipe_detector"])
+                                   "make_mediapipe_detector",
+                                   "LivePipeline", "rppg_livestream",
+                                   "serve_bpm"])
 def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
     """Without a CUDA card an entry point refuses to start unless the
-    caller passes ``device="cpu"``; it never falls back on its own."""
+    caller passes ``device="cpu"`` (``--device cpu`` for an app); it never
+    falls back on its own."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = str(tmp_path / "missing.avi")
     call = {"BpmServer": lambda **kw: serving.BpmServer(n_slots=2, **kw),
@@ -260,11 +303,21 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
             "measure_green_avg_file":
                 lambda **kw: offline.measure_green_avg_file(path, **kw),
             "make_mediapipe_detector":
-                lambda **kw: tmp.make_mediapipe_detector(path, **kw)}[entry]
+                lambda **kw: tmp.make_mediapipe_detector(path, **kw),
+            "LivePipeline": lambda **kw: live.LivePipeline(**kw),
+            "rppg_livestream": _app(rppg_livestream.main, "--video", path,
+                                    "--no-display"),
+            "serve_bpm": _app(serve_bpm.main, "--host", "127.0.0.1",
+                              "--port", "0", "--height", "48", "--width",
+                              "128", "--max-seconds", "0")}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
-    if entry == "BpmServer":
+    if entry in ("BpmServer", "LivePipeline"):
         assert call(device="cpu").device == torch.device("cpu")
+    elif entry == "rppg_livestream":     # it starts, and finds no file
+        assert call(device="cpu") == 1
+    elif entry == "serve_bpm":           # it serves, for no time
+        assert call(device="cpu") == 0
     else:       # with device="cpu" it starts, and finds no file
         with pytest.raises(FileNotFoundError):
             call(device="cpu")

@@ -18,11 +18,24 @@ such argument).  Tolerances and why:
   frames and within one DFT bin on the rest against JAX (XLA:CPU and
   PyTorch round float32 FFTs differently); equal to the port's in-memory
   measure of the same decoded frames;
-* the readers: decoded frames, fps and chunk start indices equal.
+* the readers: decoded frames, fps and chunk start indices equal, for any
+  number of decoders, on MJPG and ``mp4v`` clips; I420 chunks equal cv2's
+  ``COLOR_BGR2YUV_I420`` of the BGR chunks;
+* the I420 reconstruction: equal to JAX's and to ``cv2.COLOR_YUV2BGR_I420``;
+  the plane-domain means: counts equal and means within ``atol=1e-4`` of
+  JAX's (float32 affine map, which XLA may round as fmas), and within
+  JAX's own bounds of reconstruct-then-reduce, 0.51 u8 for even boxes and
+  1.5 u8 for odd edges (``tests/test_native_io.py``);
+* the I420 streams: ``valid`` equal, means within ``atol=1e-4`` (detect,
+  plane means) and ``rtol=1e-6`` (fused, K1 on rebuilt frames) of JAX's
+  (whose native reader stages I420; those cases skip without it), equal to
+  the port's whole-clip fused pass on the cv2-rebuilt frames, and within
+  1.5 u8 of its whole-clip detect pass.
 """
 
 import dataclasses
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +44,7 @@ import torch
 import vhr_tpu.io.native
 from vhr_tpu.config import PipelineConfig as JaxPipelineConfig
 from vhr_tpu.io import video as jvideo
+from vhr_tpu.ops import color as jcolor
 from vhr_tpu.ops import reduce as jreduce
 from vhr_tpu.ops.pallas_roi import roi_channel_means_pallas_batched
 from vhr_tpu.pipeline import offline as joffline
@@ -38,11 +52,15 @@ from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch.config import PipelineConfig
 from vhr_tpu_torch.io import video as tvideo
-from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+from vhr_tpu_torch.ops import color, fused_cuda, roi_means_cuda
 from vhr_tpu_torch.ops import roi as troi
 from vhr_tpu_torch.ops import windows as twin
 from vhr_tpu_torch.ops.reduce import roi_channel_means
 from vhr_tpu_torch.pipeline import offline as toffline
+
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
 
 FPS = 30.0
 # The same configuration built in each package from the same arguments.
@@ -70,6 +88,28 @@ def clips(tmp_path_factory):
                                 dropout_frames=(50, 51, 52)))
     return {"small": _write(d / "small.avi", small.frames),
             "wide": _write(d / "wide.avi", wide.frames)}
+
+
+@pytest.fixture(scope="module")
+def i420_clips(tmp_path_factory):
+    """75 BPM clips at the fused kernel's width (128) and at 160, whose
+    128-column padded width (256) the I420 stream's detector sees, and a
+    6 s MJPG and ``mp4v`` pair for the multi-decoder reader."""
+    d = tmp_path_factory.mktemp("i420")
+    out = {}
+    for w in (128, 160):
+        clip = synthesize(SynthSpec(duration_s=3.0, height=48, width=w,
+                                    bpm=75.0, noise_std=1.0,
+                                    dropout_frames=(20, 21)))
+        out[w] = _write(d / f"w{w}.avi", clip.frames)
+    long = synthesize(SynthSpec(duration_s=6.0, height=48, width=64,
+                                bpm=75.0, noise_std=2.0,
+                                motion_amplitude=2.0))
+    out["MJPG"] = _write(d / "long.avi", long.frames)
+    mp4 = str(d / "long.mp4")
+    tvideo.write_video(long.frames, mp4, FPS, fourcc="mp4v")
+    out["mp4v"] = mp4
+    return out
 
 
 def _random_rois(rng, T, H, W):
@@ -213,16 +253,220 @@ def test_chunk_reader_stops_on_early_exit_and_error(clips, tmp_path):
     with tvideo.ChunkReader(path, 4, "cpu") as reader:
         first, start = next(iter(reader))
     assert start == 0 and first.shape[0] == 4
-    assert not reader._thread.is_alive()
+    assert not any(th.is_alive() for th in reader._threads)
     with pytest.raises(RuntimeError, match="boom"):
         with tvideo.ChunkReader(path, 4, "cpu") as reader:
             for _ in reader:
                 raise RuntimeError("boom")
-    assert not reader._thread.is_alive()
+    assert not any(th.is_alive() for th in reader._threads)
     with pytest.raises(FileNotFoundError):
         tvideo.ChunkReader(str(tmp_path / "missing.avi"), 4, "cpu")
     with pytest.raises(ValueError):
         tvideo.ChunkReader(path, 0, "cpu")
+
+
+# -- I420: reconstruction and plane-domain means ----------------------------
+
+def _bgr_to_i420(frames):
+    return np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2YUV_I420) for f in frames])
+
+
+@pytest.mark.parametrize("shape,w_out", [((5, 48, 70), None),
+                                         ((5, 48, 70), 128),
+                                         ((3, 30, 64), 256)])
+def test_i420_to_bgr_flat_matches_jax_and_cv2(shape, w_out):
+    """Random BGR frames through cv2's I420 forward conversion: the port's
+    reconstruction equals JAX's and cv2's inverse bit for bit, with zero
+    columns up to ``w_out``, from planar or flat rows."""
+    T, H, W = shape
+    rng = np.random.default_rng(W + (w_out or 0))
+    raw = _bgr_to_i420(rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8))
+    got = color.i420_to_bgr_flat(torch.as_tensor(raw), H, W, w_out).numpy()
+    flat = color.i420_to_bgr_flat(torch.as_tensor(raw.reshape(T, -1)), H, W,
+                                  w_out).numpy()
+    want = np.asarray(jcolor.i420_to_bgr_flat(
+        jnp.asarray(raw.reshape(T, -1)), H, W, w_out))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(flat, want)
+    wo = w_out or W
+    got = got.reshape(T, H, wo, 3)
+    assert not got[:, :, W:].any()
+    for i in range(T):
+        np.testing.assert_array_equal(
+            got[i, :, :W], cv2.cvtColor(raw[i], cv2.COLOR_YUV2BGR_I420))
+
+
+_I420_ROIS = {"even": [8, 12, 72, 48], "odd": [9, 13, 71, 47],
+              "empty": [0, 0, 0, 0], "above": [3, -5, 30, 36],
+              "past the edge": [60, 40, 101, 70]}
+
+
+@pytest.mark.parametrize("kind", list(_I420_ROIS))
+def test_i420_roi_means_matches_jax(kind):
+    """The plane-domain means on even, odd, empty, ``y1 < 0`` and
+    past-the-edge boxes (and a random box per frame): counts equal, means
+    within 1e-4 of JAX's."""
+    T, H, W = 6, 64, 96
+    rng = np.random.default_rng(len(kind))
+    raw = _bgr_to_i420(rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8))
+    rois = np.tile(np.int32(_I420_ROIS[kind]), (T, 1))
+    rois[-1] = _random_rois(rng, 8, H, W)[-1]
+    got, cnt = color.i420_roi_means(torch.as_tensor(raw),
+                                    torch.as_tensor(rois), H, W)
+    want, wcnt = jcolor.i420_roi_means(jnp.asarray(raw.reshape(T, -1)),
+                                       jnp.asarray(rois), H, W)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+    if kind == "empty":
+        assert not got[:-1].any() and not cnt[:-1].any()
+
+
+def test_i420_roi_means_within_reconstruction_bounds():
+    """Against reconstruct-then-reduce on smooth, in-gamut frames: within
+    0.51 u8 for even-aligned boxes and 1.5 u8 for odd edges (the JAX
+    package's bounds), counts equal."""
+    rng = np.random.default_rng(7)
+    T, H, W = 6, 64, 96
+    bgr = rng.integers(10, 246, (T, H, W, 3), np.uint8)
+    bgr = np.stack([cv2.GaussianBlur(f, (9, 9), 3) for f in bgr])
+    raw = torch.as_tensor(_bgr_to_i420(bgr))
+    frames = color.i420_to_bgr_flat(raw, H, W).reshape(T, H, W, 3)
+    for box, bound in (([8, 12, 72, 48], 0.51), ([9, 13, 71, 47], 1.5)):
+        rois = torch.tensor([box] * T, dtype=torch.int32)
+        ref, cnt_ref = roi_channel_means(frames, rois)
+        got, cnt = color.i420_roi_means(raw, rois, H, W)
+        np.testing.assert_array_equal(cnt.numpy(), cnt_ref.numpy())
+        assert float((got - ref).abs().max()) < bound
+
+
+# -- the reader: decoders and I420 staging ----------------------------------
+
+def _read_all(path, chunk, **kw):
+    with tvideo.ChunkReader(path, chunk, "cpu", **kw) as reader:
+        got = [(c.numpy().copy(), s) for c, s in reader]
+        return got, reader.n_workers
+
+
+@pytest.mark.parametrize("codec", ["MJPG", "mp4v"])
+@pytest.mark.parametrize("chunk", [7, 32])
+@pytest.mark.parametrize("n_decoders", [2, 3, 4])
+def test_chunk_reader_decoders_equal_one(i420_clips, codec, chunk,
+                                         n_decoders):
+    """``n_decoders`` workers over seeked segments of a 180-frame clip give
+    one decoder's bytes and start indices, on an intra-frame (MJPG) and an
+    inter-frame (``mp4v``) codec."""
+    path = i420_clips[codec]
+    ref, _ = _read_all(path, chunk)
+    got, n_workers = _read_all(path, chunk, n_decoders=n_decoders)
+    assert n_workers == n_decoders
+    assert [s for _, s in got] == [s for _, s in ref]
+    assert sum(len(c) for c, _ in got) == 180
+    for (g, _), (r, _) in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("n_decoders", [1, 3])
+def test_chunk_reader_i420_equals_cvtcolor(i420_clips, n_decoders):
+    """``fmt="i420"`` chunks are cv2's ``COLOR_BGR2YUV_I420`` of the BGR
+    chunks, ``(n, H*3//2, W)``."""
+    path = i420_clips["MJPG"]
+    ref, _ = _read_all(path, 32)
+    got, _ = _read_all(path, 32, n_decoders=n_decoders, fmt="i420")
+    assert [s for _, s in got] == [s for _, s in ref]
+    for (g, _), (r, _) in zip(got, ref):
+        assert g.shape == (len(r), 72, 64)
+        np.testing.assert_array_equal(g, _bgr_to_i420(r))
+
+
+def _write_y4m(path, frames):
+    """An uncompressed 4:4:4 YUV4MPEG2 clip, which keeps odd frame sides
+    (cv2's writers crop them to even)."""
+    T, H, W, _ = frames.shape
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{W} H{H} F30:1 Ip A1:1 C444\n".encode())
+        for fr in frames:
+            yuv = cv2.cvtColor(fr, cv2.COLOR_BGR2YUV)
+            f.write(b"FRAME\n" + np.ascontiguousarray(
+                yuv.transpose(2, 0, 1)).tobytes())
+    return str(path)
+
+
+def test_odd_clip_refuses_i420_and_streams_bgr(tmp_path):
+    """An odd-sized clip: the I420 reader raises ``IOError``, and the I420
+    stream stages BGR instead, equal to the BGR stream."""
+    clip = synthesize(SynthSpec(duration_s=1.0, height=47, width=65,
+                                bpm=75.0))
+    path = _write_y4m(tmp_path / "odd.y4m", clip.frames)
+    assert tvideo.video_metadata(path)[:2] == (65, 47)
+    with pytest.raises(IOError, match="even"):
+        tvideo.ChunkReader(path, 8, "cpu", fmt="i420")
+    with pytest.raises(ValueError, match="fmt"):
+        tvideo.ChunkReader(path, 8, "cpu", fmt="yuv")
+    a = toffline.extract_signals_streaming(path, CFG, chunk_frames=8,
+                                           transfer="i420", n_decoders=2,
+                                           device="cpu")
+    b = toffline.extract_signals_streaming(path, CFG, chunk_frames=8,
+                                           device="cpu")
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+# -- the I420 streams -------------------------------------------------------
+
+_I420_STREAMS = [(form, de, w) for form in ("detect", "fused")
+                 for de in (1, 4) for w in (128, 160)]
+
+
+@pytest.mark.parametrize("form,detect_every,width", _I420_STREAMS)
+def test_streaming_i420_matches_jax(i420_clips, form, detect_every, width):
+    """``transfer="i420"`` in both forms against ``vhr_tpu``'s I420 stream
+    (its native reader stages the planes): ``valid`` equal, means within
+    1e-4 (detect: plane means) or ``rtol=1e-6`` (fused: K1 on the rebuilt
+    chunk).  Skipped where the native reader does not build."""
+    if not vhr_tpu.io.native.is_available():
+        pytest.skip("vhr_tpu's native framestore is unavailable: the JAX "
+                    "stream stages BGR without it")
+    path = i420_clips[width]
+    kw = dict(chunk_frames=32, detect_every=detect_every, transfer="i420",
+              use_fused=form == "fused")
+    jb, jv, jfps = joffline.extract_signals_streaming(path, JCFG, **kw)
+    b, v, fps = toffline.extract_signals_streaming(path, CFG, n_decoders=2,
+                                                   device="cpu", **kw)
+    assert fps == jfps and v.mean() > 0.9
+    np.testing.assert_array_equal(v, jv)
+    tol = dict(rtol=0, atol=1e-4) if form == "detect" else MEANS_TOL
+    np.testing.assert_allclose(b, jb, **tol)
+
+
+@pytest.mark.parametrize("form,detect_every,width", _I420_STREAMS)
+def test_streaming_i420_matches_whole_clip(i420_clips, form, detect_every,
+                                           width):
+    """The I420 stream against the port's whole-clip pass on the cv2-rebuilt
+    frames at the 128-column padded width (what the stream's detector and
+    K1 see): fused equal; detect ``valid`` equal and means within 1.5 u8
+    (plane means against reconstruct-then-reduce), with no K3."""
+    path = i420_clips[width]
+    frames, _ = tvideo.read_video(path)
+    rebuilt = np.stack([cv2.cvtColor(f, cv2.COLOR_YUV2BGR_I420)
+                        for f in _bgr_to_i420(frames)])
+    padded = np.zeros(rebuilt.shape[:2] + (256 if width == 160 else 128, 3),
+                      np.uint8)
+    padded[:, :, :width] = rebuilt
+    b, v, _ = toffline.extract_signals_streaming(
+        path, CFG, chunk_frames=32, detect_every=detect_every,
+        transfer="i420", use_fused=form == "fused", device="cpu")
+    if form == "fused":
+        tr = toffline.extract_signals_fused(torch.as_tensor(padded), CFG,
+                                            detect_every=detect_every)
+        np.testing.assert_array_equal(b, tr.bgr.numpy())
+    else:
+        tr = toffline.extract_signals(torch.as_tensor(padded), CFG,
+                                      detect_every=detect_every)
+        assert float(np.abs(b - tr.bgr.numpy()).max()) < 1.5
+        assert int(tr.rois[:, 2].max()) <= width
+    np.testing.assert_array_equal(v, tr.valid.numpy())
+    assert v.mean() > 0.9
 
 
 # -- the streams ------------------------------------------------------------
@@ -331,14 +575,33 @@ def test_streaming_errors_and_empty(clips):
     with pytest.raises(ValueError, match="divide"):
         toffline.measure_green_avg_file(path, CFG, chunk_frames=10,
                                         detect_every=4, device="cpu")
-    # transfer="i420" and prefer_native stage BGR through cv2 here, as JAX
-    # does without its native reader.
-    a = toffline.extract_signals_streaming(path, CFG, chunk_frames=32,
-                                           transfer="i420", device="cpu")
-    b = toffline.extract_signals_streaming(path, CFG, chunk_frames=32,
-                                           prefer_native=False, device="cpu")
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    # transfer="i420" takes the plane path: the planes' means each chunk,
+    # no K3, the BGR stream's validity and means within 1.5 u8.
+    calls = {"planes": 0, "k3": 0}
+
+    def counted(fn, key):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(toffline.color, "i420_roi_means",
+               counted(color.i420_roi_means, "planes"))
+    mp.setattr(toffline, "roi_channel_means_batched_cuda",
+               counted(roi_means_cuda.roi_channel_means_batched_cuda, "k3"))
+    try:
+        a = toffline.extract_signals_streaming(path, CFG, chunk_frames=32,
+                                               transfer="i420", device="cpu")
+        assert calls == {"planes": 3, "k3": 0}
+        b = toffline.extract_signals_streaming(path, CFG, chunk_frames=32,
+                                               prefer_native=False,
+                                               device="cpu")
+        assert calls == {"planes": 3, "k3": 3}
+    finally:
+        mp.undo()
+    np.testing.assert_array_equal(a[1], b[1])
+    assert float(np.abs(a[0] - b[0]).max()) < 1.5 and a[2] == b[2]
     # A pluggable detector, as JAX's stream takes one.
     box = torch.tensor([4, 4, 60, 40], dtype=torch.int32)
 

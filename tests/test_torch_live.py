@@ -8,7 +8,14 @@ the CPU, the fused kernel in interpret mode) and the port's.  Tolerances:
 - masked Welch: same peak bin and validity, mean PSD within ``rtol=1e-4``
   (float32 matmul sums in another order);
 - the projection methods and the adaptive selector: every tick's BPM,
-  validity and ``choice`` equal.
+  validity and ``choice`` equal;
+- ``transfer="i420"`` steps: equal, as the BGR steps;
+- ``LivePipeline`` against the port's sequential step and its own 1-deep
+  form: equal; against the JAX package's ``LivePipeline``: every field
+  equal but the filtered green, within ``5e-4`` (the JAX pipeline's
+  program rounds the SOS push a little differently from its own step,
+  which the port equals; ``tests/test_torch_serving.py`` holds the pools
+  to the same bound).
 """
 
 import dataclasses
@@ -27,6 +34,10 @@ from vhr_tpu.utils.synth import SynthSpec, synthesize
 from vhr_tpu_torch import interop
 from vhr_tpu_torch.dsp import design, filters, projections
 from vhr_tpu_torch.pipeline import live
+
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -220,8 +231,7 @@ def test_projection_methods_not_ported_yet(method):
 
 
 def test_live_config_checks():
-    with pytest.raises(NotImplementedError, match="color"):
-        live.make_step(live.LiveConfig(), transfer="i420")
+    live.make_step(live.LiveConfig(), transfer="i420")
     with pytest.raises(ValueError, match="transfer"):
         live.make_step(live.LiveConfig(), transfer="yuv")
     with pytest.raises(ValueError, match="detector"):
@@ -237,3 +247,152 @@ def test_live_config_checks():
     bad = dict(dataclasses.asdict(jlive.LiveConfig()), extra=1)
     with pytest.raises(ValueError, match="extra"):
         interop.live_config_from_jax(bad)
+    # LivePipeline's argument errors, as the JAX package raises them; the
+    # multi-face pipeline is not ported yet.
+    for kw, match in [(dict(transfer="yuv"), "transfer"),
+                      (dict(fetch_every=0), "fetch_every"),
+                      (dict(frames_per_call=0), "frames_per_call"),
+                      (dict(fetch_every=2, frames_per_call=2),
+                       "alternative")]:
+        with pytest.raises(ValueError, match=match):
+            live.LivePipeline(live.LiveConfig(), device="cpu", **kw)
+        with pytest.raises(ValueError, match=match):
+            jlive.LivePipeline(jlive.LiveConfig(), **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        live.LivePipeline(live.LiveConfig(), k_faces=2, device="cpu")
+    with pytest.raises(ValueError, match="detector"):
+        live.LivePipeline(live.LiveConfig(use_fused=True),
+                          detector=lambda f: None, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        live.LivePipeline(live.LiveConfig(method="nope"), device="cpu")
+
+
+# -- transfer="i420" and LivePipeline ---------------------------------------
+
+def _i420(frames):
+    return [live.bgr_to_i420_host(f) for f in frames]
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_live_step_i420_matches_jax(clip, use_fused):
+    """``make_step(transfer="i420")`` on planar frames, fused and skin:
+    every tick's outputs and the final state equal ``vhr_tpu``'s I420
+    step's, as ``test_live_methods_match_jax`` holds them."""
+    jcfg = jlive.LiveConfig(fps=clip.fps, use_fused=use_fused, ring_len=30,
+                            detect_every=2)
+    planar = _i420(clip.frames)
+    jst, jstp = jlive.init_state(jcfg), jlive.make_step(
+        jcfg, donate=False, transfer="i420")
+    ref = []
+    for f in planar:
+        jst, o = jstp(jst, jnp.asarray(f))
+        ref.append(jax.tree.map(np.asarray, o))
+    cfg = _port_cfg(jcfg)
+    st, stp = live.init_state(cfg), live.make_step(cfg, transfer="i420")
+    got = []
+    for f in planar:
+        st, o = stp(st, torch.as_tensor(f))
+        got.append(o)
+    for k in jlive.LiveOutput._fields:
+        np.testing.assert_array_equal(_field(got, k), _field(ref, k),
+                                      err_msg=k)
+    assert _field(got, "bpm_valid")[-1]
+    want = interop.live_state_to_numpy(
+        interop.live_state_from_numpy(jax.tree.map(np.asarray, jst)))
+    for k, v in interop.live_state_to_numpy(st).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+def _pipe_outputs(pipe, frames):
+    """Every output of ``pipe`` over ``frames`` and its flush, in order,
+    with the call on which each came back."""
+    outs, when = [], []
+    for i, f in enumerate(frames):
+        o = pipe.submit(f)
+        if o is not None:
+            batch = o if isinstance(o, list) else [o]
+            outs.extend(batch)
+            when.extend([i] * len(batch))
+    o = pipe.flush()
+    if o is not None:
+        batch = o if isinstance(o, list) else [o]
+        outs.extend(batch)
+        when.extend([len(frames)] * len(batch))
+    return outs, when
+
+
+def _assert_outputs_equal(got, ref, filt_atol=0.0):
+    assert len(got) == len(ref)
+    for k in live.LiveOutput._fields:
+        g, r = _field(got, k), _field(ref, k)
+        if k == "green_filtered" and filt_atol:
+            np.testing.assert_allclose(g, r, rtol=0, atol=filt_atol)
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=k)
+
+
+@pytest.mark.parametrize("transfer,use_fused", [
+    ("bgr", True), ("bgr", False), ("i420", True), ("i420", False)])
+def test_live_pipeline_matches_sequential_step(clip, transfer, use_fused):
+    """The 1-deep pipeline returns the sequential step's outputs shifted by
+    one call: nothing on the first submit, frame N-1's on submit N, the
+    last frame's on flush."""
+    cfg = live.LiveConfig(fps=clip.fps, use_fused=use_fused, ring_len=30,
+                          detect_every=3)
+    frames = _i420(clip.frames) if transfer == "i420" else clip.frames
+    st, stp = live.init_state(cfg), live.make_step(cfg, transfer=transfer)
+    ref = []
+    for f in frames:
+        st, o = stp(st, torch.as_tensor(f))
+        ref.append(o)
+    pipe = live.LivePipeline(cfg, transfer=transfer, device="cpu")
+    got, when = _pipe_outputs(pipe, frames)
+    assert when == list(range(1, len(frames) + 1))
+    _assert_outputs_equal(got, ref)
+    assert isinstance(got[-1].bpm, np.ndarray) and got[-1].bpm_valid
+    for k, v in interop.live_state_to_numpy(pipe._state).items():
+        np.testing.assert_array_equal(
+            v, interop.live_state_to_numpy(st)[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fetch_every=3), dict(frames_per_call=4),
+    dict(frames_per_call=4, transfer="i420")])
+def test_live_pipeline_batching_equals_one_deep(clip, kw):
+    """``fetch_every=3`` and ``frames_per_call=4`` over 23 frames (a partial
+    tail for both) give the 1-deep pipeline's outputs, in lists, on the
+    calls the JAX package returns them: N outputs every N-th call from the
+    (N+1)-th, M every M-th from the 2M-th, the rest on flush."""
+    frames = clip.frames[:23]
+    cfg = live.LiveConfig(fps=clip.fps, use_fused=True, ring_len=20)
+    transfer = kw.get("transfer", "bgr")
+    src = _i420(frames) if transfer == "i420" else frames
+    ref, _ = _pipe_outputs(live.LivePipeline(cfg, device="cpu",
+                                             transfer=transfer), src)
+    got, when = _pipe_outputs(live.LivePipeline(cfg, device="cpu", **kw),
+                              src)
+    _assert_outputs_equal(got, ref)
+    n = kw.get("fetch_every", 1)
+    m = kw.get("frames_per_call", 1)
+    if n > 1:
+        want = [i for i in range(n, 23, n) for _ in range(n)]
+    else:
+        want = [i for i in range(2 * m - 1, 23, m) for _ in range(m)]
+    assert when == want + [23] * (23 - len(want))
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_live_pipeline_matches_jax_pipeline(clip, use_fused):
+    """The port's ``LivePipeline`` against the JAX package's on the same
+    planar frames (``transfer="i420"``, ``frames_per_call=4``): the same
+    outputs on the same calls."""
+    jcfg = jlive.LiveConfig(fps=clip.fps, use_fused=use_fused, ring_len=30)
+    frames = _i420(clip.frames)
+    ref, ref_when = _pipe_outputs(jlive.LivePipeline(
+        jcfg, donate=False, transfer="i420", frames_per_call=4), frames)
+    got, when = _pipe_outputs(live.LivePipeline(
+        _port_cfg(jcfg), transfer="i420", frames_per_call=4, device="cpu"),
+        frames)
+    assert when == ref_when
+    _assert_outputs_equal(got, ref, filt_atol=5e-4)
+    assert got[-1].bpm_valid

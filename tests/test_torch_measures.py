@@ -36,6 +36,10 @@ from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
 from vhr_tpu_torch.pipeline import offline
 from vhr_tpu_torch.utils import synth as tsynth
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 FPS = 30.0
 _ARGS = dict(window_seconds=4.0, acquisition_seconds=2.0)
 _APP_ARGS = dict(window_seconds=5.0, acquisition_seconds=2.0)

@@ -46,6 +46,10 @@ from vhr_tpu_torch.models import tflite_exec as texec
 from vhr_tpu_torch.ops import meshblocks_cuda as tmb
 from vhr_tpu_torch.pipeline import offline as toffline
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 TASK = tmp.default_task_path()
 DET, MESH = "face_detector.tflite", "face_landmarks_detector.tflite"
 CPU = torch.device("cpu")

@@ -34,6 +34,10 @@ from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
 from vhr_tpu_torch.ops import windows as twin
 from vhr_tpu_torch.pipeline import offline as toffline
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 FPS = 30.0
 # The same configuration built in each package from the same arguments.
 _CFG_ARGS = dict(window_seconds=4.0, acquisition_seconds=2.0)

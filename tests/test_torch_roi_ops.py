@@ -28,6 +28,10 @@ from vhr_tpu_torch.ops import reduce as treduce
 from vhr_tpu_torch.ops import roi as troi
 from vhr_tpu_torch.ops import roi_means_cuda
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 MEANS_TOL = dict(rtol=1e-6, atol=1e-5)
 
 

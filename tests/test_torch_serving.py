@@ -37,6 +37,10 @@ from vhr_tpu_torch.config import ROIConfig
 from vhr_tpu_torch.ops import fused_cuda
 from vhr_tpu_torch.pipeline import live
 
+# One intra-op thread: the suite runs several pytest workers on the
+# host's cores, and more threads a worker oversubscribe them.
+torch.set_num_threads(1)
+
 MEANS_TOL = dict(rtol=1e-6, atol=1e-5)
 
 
@@ -305,6 +309,82 @@ def test_legacy_snapshot_and_missing_field(clips, capsys):
     assert not p3.snapshot()["state.ring_bgr"].any()
 
 
+def _planar(clip):
+    """BGR frames -> planar I420 frames, as a client converts them."""
+    return np.stack([live.bgr_to_i420_host(f) for f in clip])
+
+
+@pytest.mark.parametrize("use_fused,detect_every", [(True, 3), (False, 2)])
+def test_i420_pool_matches_jax_pool(clips, use_fused, detect_every):
+    """``BpmServer(transfer="i420")`` on planar frames, in the fused (K4)
+    and the skin (K2) tick, against the JAX package's I420 pool on the same
+    frames: every tick's outputs as ``test_pool_matches_jax_pool`` holds
+    them, and equal to the port's BGR pool on the cv2-rebuilt frames."""
+    import cv2
+
+    jcfg, cfg = _cfgs(use_fused=use_fused, detect_every=detect_every)
+    planar = [_planar(c) for c in clips]
+    ref = _drive(jserving.BpmServer(jcfg, n_slots=3, donate=False,
+                                    transfer="i420"), *planar)
+    got = _drive(serving.BpmServer(cfg, n_slots=3, device="cpu",
+                                   transfer="i420"), *planar)
+    _assert_pools_equal(got, ref)
+    assert got[-1][0].bpm_valid
+    rebuilt = [np.stack([cv2.cvtColor(f, cv2.COLOR_YUV2BGR_I420)
+                         for f in c]) for c in planar]
+    bgr = _drive(serving.BpmServer(cfg, n_slots=3, device="cpu"), *rebuilt)
+    _assert_pools_equal(got, bgr, filt_atol=0.0)
+
+
+def test_tcp_i420_client_gets_one_line_per_frame(clips):
+    """A TCP client with ``transfer="i420"`` streams planar frames into an
+    I420 pool: one ordered line per frame, each equal to the I420 step's
+    output; the stats hello advertises the transfer."""
+    _, cfg = _cfgs(use_fused=True)
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu", transfer="i420")
+    srv = _serve(pool, clips[0][0].shape[:2])
+    port = srv.server_address[1]
+    frames = _planar(clips[0])
+    c = serving.BpmClient("127.0.0.1", port, transfer="i420")
+    for f in frames:
+        c.send(f)
+    lines = [c.recv() for _ in frames]
+    c.close()
+    stats = serving.WsBpmClient("127.0.0.1", port,
+                                hello_extra={"stats": True}).stats
+    srv.shutdown()
+    assert stats["transfer"] == "i420"
+    assert [o["seq"] for o in lines] == list(range(len(frames)))
+    st, stp = live.init_state(cfg), live.make_step(cfg, transfer="i420")
+    for line, f in zip(lines, frames):
+        st, o = stp(st, torch.as_tensor(f))
+        assert line["bpm"] == round(float(o.bpm), 4)
+        assert line["bpm_valid"] == bool(o.bpm_valid)
+        assert line["box"] == [int(x) for x in o.box]
+    assert lines[-1]["bpm_valid"]
+
+
+def test_bgr_client_to_i420_pool_is_refused(clips):
+    """The hello names the wire format: a BGR client of an I420 pool gets
+    the JAX front-end's error, and a BGR-sized frame on an I420 connection is
+    a payload error."""
+    _, cfg = _cfgs()
+    pool = serving.BpmServer(cfg, n_slots=2, device="cpu", transfer="i420")
+    srv = _serve(pool, clips[0][0].shape[:2])
+    port = srv.server_address[1]
+    with pytest.raises(ConnectionError, match="transfer='i420'"):
+        serving.BpmClient("127.0.0.1", port)
+    with pytest.raises(ConnectionError, match="transfer"):
+        serving.WsBpmClient("127.0.0.1", port)
+    c = serving.BpmClient("127.0.0.1", port, transfer="i420")
+    c.sock.sendall(struct.pack("<I", clips[0][0].nbytes)
+                   + clips[0][0].tobytes())
+    line = json.loads(c.rfile.readline().decode())
+    assert "error" in line and "i420" in line["error"]
+    c.close()
+    srv.shutdown()
+
+
 def _serve(pool, shape, **kw):
     return serving.serve_forever("127.0.0.1", 0, pool, frame_shape=shape,
                                  **kw)
@@ -434,7 +514,6 @@ def test_auth_token_both_protocols(clips):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(transfer="i420"), "item 7"),
     (dict(mesh=object()), "item 14"),
     (dict(k_faces=2), "item 12"),
 ])

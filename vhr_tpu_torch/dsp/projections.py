@@ -95,12 +95,21 @@ def _overlap_plan(T: int, L: int, stride: int, hann: bool):
     return idx, cover, win, norm
 
 
-def _overlap_add(s: torch.Tensor, cover: np.ndarray) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _device_plan(T: int, L: int, stride: int, hann: bool,
+                 device: torch.device):
+    """:func:`_overlap_plan`'s tables on ``device``, cached: a copy from the
+    host in every call would wait for the card's queue."""
+    return tuple(None if a is None else torch.as_tensor(a, device=device)
+                 for a in _overlap_plan(T, L, stride, hann))
+
+
+def _overlap_add(s: torch.Tensor, cover: torch.Tensor) -> torch.Tensor:
     """Sum ``(..., N, L)`` window samples onto ``(..., T)`` frames through
     the ``cover`` table, in its order (one add per column)."""
     flat = torch.cat([s.reshape(s.shape[:-2] + (-1,)),
                       s.new_zeros(s.shape[:-2] + (1,))], dim=-1)
-    g = flat[..., torch.as_tensor(cover, device=s.device)]    # (..., T, k)
+    g = flat[..., cover]                                      # (..., T, k)
     out = g[..., 0]
     for j in range(1, g.shape[-1]):
         out = out + g[..., j]
@@ -115,16 +124,15 @@ def _std(x: torch.Tensor) -> torch.Tensor:
 
 def _setup(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
            seconds: float, stride_half: bool, hann: bool
-           ) -> Tuple[torch.Tensor, tuple, torch.Tensor]:
+           ) -> Tuple[torch.Tensor, tuple]:
     """Window length, forward fill and the overlap plan shared by the three
-    methods: ``(filled (..., T, 3), plan, window index table on the
+    methods: ``(filled (..., T, 3), (idx, cover, window, norm) on the
     device)``."""
     T = bgr.shape[-2]
     L = int(max(4, min(T, round(seconds * fps))))
     stride = max(1, L // 2) if stride_half else 1
-    plan = _overlap_plan(T, L, stride, hann)
     filled = _ffill_rows(bgr, valid)
-    return filled, plan, torch.as_tensor(plan[0], device=bgr.device)
+    return filled, _device_plan(T, L, stride, hann, bgr.device)
 
 
 def _normalised(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -137,8 +145,8 @@ def _normalised(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def chrom_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
                 interval_seconds: float = 1.6) -> torch.Tensor:
     """CHROM pulse from ``(..., T, 3)`` BGR ROI means -> ``(..., T)``."""
-    filled, plan, idx = _setup(bgr, valid, fps, interval_seconds, True, True)
-    _, cover, win, norm = plan
+    filled, (idx, cover, win, norm) = _setup(bgr, valid, fps,
+                                             interval_seconds, True, True)
     b, g, r = filled[..., 0], filled[..., 1], filled[..., 2]
     rn, gn, bn = (_normalised(c, idx) for c in (r, g, b))
     x = 3.0 * rn - 2.0 * gn
@@ -146,22 +154,21 @@ def chrom_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
     x = x - x.mean(-1, keepdim=True)
     y = y - y.mean(-1, keepdim=True)
     s = x - _std(x) / (_std(y) + _EPS) * y
-    s = s * torch.as_tensor(win, device=bgr.device)
-    norm_t = torch.as_tensor(norm, device=bgr.device)
-    return _overlap_add(s, cover) / torch.clamp(norm_t, min=_EPS)
+    return _overlap_add(s * win, cover) / torch.clamp(norm, min=_EPS)
 
 
 def pos_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
               window_seconds: float = 1.6) -> torch.Tensor:
     """POS pulse from ``(..., T, 3)`` BGR ROI means -> ``(..., T)``."""
-    filled, plan, idx = _setup(bgr, valid, fps, window_seconds, False, False)
+    filled, (idx, cover, _, _) = _setup(bgr, valid, fps, window_seconds,
+                                         False, False)
     b, g, r = filled[..., 0], filled[..., 1], filled[..., 2]
     rn, gn, bn = (_normalised(c, idx) for c in (r, g, b))
     s1 = gn - bn
     s2 = gn + bn - 2.0 * rn
     h = s1 + _std(s1) / (_std(s2) + _EPS) * s2
     h = h - h.mean(-1, keepdim=True)
-    return _overlap_add(h, plan[1])
+    return _overlap_add(h, cover)
 
 
 def omit_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
@@ -172,8 +179,8 @@ def omit_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
     the green row of ``C - q (q^T C)`` (the JAX package's form of the
     published QR step).
     """
-    filled, plan, idx = _setup(bgr, valid, fps, window_seconds, True, True)
-    _, cover, win, norm = plan
+    filled, (idx, cover, win, norm) = _setup(bgr, valid, fps,
+                                             window_seconds, True, True)
     # RGB rows of each window: (..., N, L) each.
     cr, cg, cb = (filled[..., c][..., idx] for c in (2, 1, 0))
     mr, mg, mb = (c.mean(-1, keepdim=True) for c in (cr, cg, cb))
@@ -182,9 +189,7 @@ def omit_pulse(bgr: torch.Tensor, valid: torch.Tensor, fps: float,
     coef = qr * cr + qg * cg + qb * cb
     s = cg - qg * coef
     s = s - s.mean(-1, keepdim=True)
-    s = s * torch.as_tensor(win, device=bgr.device)
-    norm_t = torch.as_tensor(norm, device=bgr.device)
-    return _overlap_add(s, cover) / torch.clamp(norm_t, min=_EPS)
+    return _overlap_add(s * win, cover) / torch.clamp(norm, min=_EPS)
 
 
 # The methods by the names ``PipelineConfig`` and ``LiveConfig`` use.

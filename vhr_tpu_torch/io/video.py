@@ -7,13 +7,11 @@ run on the card, so this layer delivers contiguous ``(T, H, W, 3)`` uint8
 BGR frames, whole or in chunks.
 
 :class:`ChunkReader` stands in for the JAX package's native framestore
-(``vhr_tpu/io/native``), which needs OpenCV's C++ headers: it runs
-:func:`iter_video_chunks`'s decode one chunk ahead on a background thread
-(cv2 releases the GIL while it decodes), the overlap ``NativeVideoReader``
-gives with one decoder.  On a CUDA device each chunk is decoded into one of
-two pinned host buffers and copied to the card with ``non_blocking=True``
-on a side stream; an event recorded after each copy is waited on before
-that buffer is filled again.
+(``vhr_tpu/io/native``), which needs OpenCV's C++ headers: cv2 decode
+ahead on background threads (cv2 releases the GIL while it decodes), one
+decoder or several over disjoint segments (``n_decoders``), BGR or planar
+I420 staging (``fmt``), into a pool of pinned host buffers copied to the
+card with ``non_blocking=True`` on a side stream.
 """
 
 from __future__ import annotations
@@ -134,83 +132,194 @@ def write_video(frames: np.ndarray, path: str, fps: float,
 class ChunkReader:
     """Read-ahead chunked decode, staged for ``device``.
 
-    >>> with ChunkReader("clip.avi", 256, "cuda") as reader:
+    >>> with ChunkReader("clip.avi", 256, "cuda", n_decoders=4) as reader:
     ...     for frames, start in reader:     # (n, H, W, 3) u8 on the card
     ...         ...
 
     Yields the chunks of :func:`iter_video_chunks` (the last one may be
-    shorter) as tensors on ``device``, with their first frame's index.  A
-    background thread decodes the next chunk while the caller works on the
-    current one.  On a CUDA device a chunk's copy is enqueued on a side
-    stream and the current stream waits for it, so the copy of chunk k+1
-    overlaps the work on chunk k.  Leaving the ``with`` block (or
-    :meth:`close`) stops the thread and releases the capture, also after an
-    early exit or an exception.
+    shorter) as tensors on ``device``, with their first frame's index, while
+    background threads decode ahead.
+
+    * ``n_decoders > 1`` decodes disjoint, contiguous runs of chunk-aligned
+      segments in parallel, each worker with its own ``cv2.VideoCapture``
+      seeked to its first frame (``CAP_PROP_POS_FRAMES``; the seek is
+      exact on MJPG and ``mp4v``, which the tests hold), at most 8
+      workers and no more than there are chunks; chunks come out in order,
+      equal to one decoder's.  A file that reports no frame count gets one
+      worker.  cv2's ``read`` and ``cvtColor`` release the GIL, so the
+      threads decode in parallel.
+    * ``fmt="i420"`` converts each frame on its decode thread with
+      ``cv2.COLOR_BGR2YUV_I420`` and yields ``(n, H*3//2, W)`` planar
+      chunks (1.5 bytes a pixel); odd ``H`` or ``W`` raise ``IOError``.
+
+    The workers share one pool of ``n_workers + 1`` chunk buffers, pinned on
+    a CUDA device.  A worker takes a buffer for chunk ``c`` only once ``c``
+    is at most ``n_workers`` past the next chunk to be yielded: the other
+    chunks of that window can hold ``n_workers`` buffers, which leaves one
+    for the next chunk.  On a CUDA
+    device a chunk's copy is enqueued on a side stream and the current
+    stream waits for it, so the copy of chunk k+1 overlaps the work on chunk
+    k; an event recorded after each copy is waited on before its buffer is
+    filled again.  Leaving the ``with`` block (or :meth:`close`) stops the
+    threads and releases the captures, also after an early exit or an
+    exception.
     """
 
-    def __init__(self, path: str, chunk_frames: int, device):
+    def __init__(self, path: str, chunk_frames: int, device,
+                 n_decoders: int = 1, fmt: str = "bgr"):
         if chunk_frames < 1:
             raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-        self._cap = _open(path)
-        self.fps = float(self._cap.get(cv2.CAP_PROP_FPS))
-        self.chunk_frames = chunk_frames
+        if fmt not in ("bgr", "i420"):
+            raise ValueError(f"fmt must be 'bgr' or 'i420', got {fmt!r}")
+        self.path, self.fmt, self.chunk_frames = path, fmt, chunk_frames
+        cap = _open(path)
+        self.fps = float(cap.get(cv2.CAP_PROP_FPS))
+        self.width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.frame_count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        if fmt == "i420" and (self.width % 2 or self.height % 2):
+            cap.release()
+            raise IOError(f"I420 needs even frame sides, {path} is "
+                          f"{self.width}x{self.height}")
+        n_chunks = -(-self.frame_count // chunk_frames)
+        n = min(max(int(n_decoders), 1), 8)
+        self.n_workers = min(n, n_chunks) if self.frame_count > 0 else 1
+        per = -(-n_chunks // self.n_workers) if self.frame_count > 0 else 0
+        # Worker w owns chunks [w * per, (w + 1) * per); the last one reads
+        # on to the end of the file whatever the reported count.
+        self._segments = [(w * per, (w + 1) * per
+                           if w < self.n_workers - 1 else None)
+                          for w in range(self.n_workers)]
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
-        self._bufs: List[Optional[torch.Tensor]] = [None, None]
         self._pin = cuda
-        self._events = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        n_bufs = self.n_workers + 1
+        self._bufs: List[Optional[torch.Tensor]] = [None] * n_bufs
+        self._events = ([torch.cuda.Event() for _ in range(n_bufs)]
+                        if cuda else None)
         self._stream = torch.cuda.Stream(self.device) if cuda else None
-        self._free = [threading.Semaphore(1), threading.Semaphore(1)]
-        self._ready: queue.Queue = queue.Queue(maxsize=1)
+        self._free: queue.Queue = queue.Queue()
+        for i in range(n_bufs):
+            self._free.put(i)
+        self._cond = threading.Condition()
+        self._next = 0               # the next chunk index to yield
+        self._ready: dict = {}       # chunk index -> (buffer, frames)
+        self._end: Optional[int] = None   # the first chunk past the file
+        self._error: Optional[BaseException] = None
+        self._done = 0               # workers finished
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._decode,
-                                        name="ChunkReader", daemon=True)
-        self._thread.start()
+        self._threads = []
+        for w in range(self.n_workers):
+            th = threading.Thread(target=self._worker,
+                                  args=(w, cap if w == 0 else None),
+                                  name=f"ChunkReader-{w}", daemon=True)
+            self._threads.append(th)
+        for th in self._threads:
+            th.start()
 
-    # -- decode thread ------------------------------------------------------
-    def _fill(self, i: int) -> int:
-        """Decode up to ``chunk_frames`` frames into buffer ``i``."""
+    @property
+    def frame_shape(self) -> Tuple[int, ...]:
+        """One staged frame's shape: ``(H, W, 3)``, or ``(H*3//2, W)``."""
+        if self.fmt == "i420":
+            return (self.height * 3 // 2, self.width)
+        return (self.height, self.width, 3)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Bytes of pinned host memory the buffer pool holds."""
+        return sum(b.numel() for b in self._bufs if b is not None) \
+            if self._pin else 0
+
+    # -- decode threads -----------------------------------------------------
+    def _buffer(self, i: int) -> torch.Tensor:
+        if self._bufs[i] is None:
+            self._bufs[i] = torch.empty(
+                (self.chunk_frames,) + self.frame_shape, dtype=torch.uint8,
+                pin_memory=self._pin)
+        return self._bufs[i]
+
+    def _fill(self, cap, buf: torch.Tensor, scratch: list) -> int:
+        """Decode up to ``chunk_frames`` frames of ``cap`` into ``buf``."""
         n = 0
         while n < self.chunk_frames and not self._stop.is_set():
-            buf = self._bufs[i]
-            view = None if buf is None else buf[n].numpy()
-            ok, frame = self._cap.read(view)
+            row = buf[n].numpy()
+            if self.fmt == "i420":
+                ok, frame = cap.read(scratch[0])
+                if ok:
+                    scratch[0] = frame
+                    if frame.shape[:2] != (self.height, self.width):
+                        raise IOError(f"frame of {frame.shape} in a "
+                                      f"{self.width}x{self.height} video")
+                    out = cv2.cvtColor(frame, cv2.COLOR_BGR2YUV_I420,
+                                       dst=row)
+                    if not np.may_share_memory(out, row):
+                        row[...] = out
+            else:
+                ok, frame = cap.read(row)
+                if ok and not np.may_share_memory(frame, row):
+                    if frame.shape != row.shape:
+                        raise IOError(f"frame of {frame.shape} in a "
+                                      f"{self.width}x{self.height} video")
+                    row[...] = frame
             if not ok:
                 break
-            if buf is None:
-                buf = torch.empty((self.chunk_frames,) + frame.shape,
-                                  dtype=torch.uint8, pin_memory=self._pin)
-                self._bufs[i] = buf
-                view = None
-            if view is None or not np.may_share_memory(frame, view):
-                buf[n].numpy()[...] = frame
             n += 1
         return n
 
-    def _decode(self) -> None:
+    def _take_buffer(self, c: int) -> Optional[int]:
+        """A free buffer for chunk ``c``, once ``c`` is within the window;
+        ``None`` when the reader stops first."""
+        with self._cond:
+            self._cond.wait_for(lambda: self._stop.is_set()
+                                or c <= self._next + self.n_workers)
+        while not self._stop.is_set():
+            try:
+                i = self._free.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if self._events is not None:
+                # The buffer's previous copy to the card must be done.
+                self._events[i].synchronize()
+            return i
+        return None
+
+    def _worker(self, w: int, cap) -> None:
+        c0, c1 = self._segments[w]
         try:
-            k = start = 0
-            while True:
-                i = k % 2
-                self._free[i].acquire()
-                if self._stop.is_set():
+            if cap is None:
+                cap = _open(self.path)
+            if c0 > 0:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, c0 * self.chunk_frames)
+            scratch = [None]
+            c = c0
+            while c1 is None or c < c1:
+                i = self._take_buffer(c)
+                if i is None:
                     return
-                if self._events is not None:
-                    # The buffer's previous copy to the card must be done.
-                    self._events[i].synchronize()
-                n = self._fill(i)
-                if n == 0 or self._stop.is_set():
+                n = self._fill(cap, self._buffer(i), scratch)
+                with self._cond:
+                    if n:
+                        self._ready[c] = (i, n)
+                    else:
+                        self._free.put(i)
+                    if n < self.chunk_frames:
+                        end = c + 1 if n else c
+                        self._end = end if self._end is None \
+                            else min(self._end, end)
+                    self._cond.notify_all()
+                if n < self.chunk_frames or self._stop.is_set():
                     return
-                self._ready.put((i, n, start))
-                start += n
-                k += 1
-                if n < self.chunk_frames:
-                    return
+                c += 1
         except BaseException as e:   # handed to the consumer, raised there
-            self._ready.put(e)
+            with self._cond:
+                if self._error is None:
+                    self._error = e
         finally:
-            self._cap.release()
-            self._ready.put(None)
+            if cap is not None:
+                cap.release()
+            with self._cond:
+                self._done += 1
+                self._cond.notify_all()
 
     # -- consumer -----------------------------------------------------------
     def _stage(self, i: int, n: int) -> torch.Tensor:
@@ -225,29 +334,40 @@ class ChunkReader:
         out.record_stream(main)
         return out
 
+    def _next_ready(self):
+        """``(buffer, frames)`` of the next chunk, or ``None`` at the end."""
+        with self._cond:
+            while True:
+                if self._error is not None:
+                    raise self._error
+                if self._next in self._ready:
+                    return self._ready.pop(self._next)
+                if ((self._end is not None and self._next >= self._end)
+                        or self._done == self.n_workers):
+                    return None
+                self._cond.wait()
+
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, int]]:
         while True:
-            item = self._ready.get()
+            item = self._next_ready()
             if item is None:
                 return
-            if isinstance(item, BaseException):
-                raise item
-            i, n, start = item
+            i, n = item
+            start = self._next * self.chunk_frames
             chunk = self._stage(i, n)
-            self._free[i].release()
+            self._free.put(i)
+            with self._cond:
+                self._next += 1
+                self._cond.notify_all()
             yield chunk, start
 
     def close(self) -> None:
-        """Stop the decode thread and release the capture."""
+        """Stop the decode threads and release the captures."""
         self._stop.set()
-        for s in self._free:
-            s.release()
-        while self._thread.is_alive():
-            try:
-                self._ready.get(timeout=0.05)
-            except queue.Empty:
-                pass
-        self._thread.join()
+        with self._cond:
+            self._cond.notify_all()
+        for th in self._threads:
+            th.join()
 
     def __enter__(self) -> "ChunkReader":
         return self

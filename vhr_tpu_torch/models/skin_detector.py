@@ -119,8 +119,9 @@ def pooled_skin_mask(frames: torch.Tensor, cfg: SkinDetectorConfig
             frames = frames[:, k // 2:Hc:k, k // 2:Wc:k]
         else:
             # A tensor divisor: CUDA divides by a Python scalar as a
-            # multiplication by its reciprocal.
-            div = torch.tensor(float(k * k), device=frames.device)
+            # multiplication by its reciprocal.  Filled on the device: a
+            # copy from the host would wait for the card's queue.
+            div = torch.full((), float(k * k), device=frames.device)
             frames = (frames[:, :Hc, :Wc].reshape(T, Hc // k, k, Wc // k, k, 3)
                       .to(torch.float32).sum((2, 4)) / div)
     return skin_mask(frames, cfg) >= cfg.threshold
@@ -142,8 +143,8 @@ def _detect_chunk(frames: torch.Tensor, cfg: SkinDetectorConfig
     y1 = torch.where(row_any, row_idx, H).amin(dim=1)
     y2 = torch.where(row_any, row_idx, -1).amax(dim=1)
     area = mask.reshape(T, -1).sum(dim=1).to(torch.float32)
-    thresh = torch.tensor(cfg.min_area_fraction * (H * W),
-                          dtype=torch.float32, device=dev)
+    thresh = torch.full((), cfg.min_area_fraction * (H * W),
+                        dtype=torch.float32, device=dev)
     valid = area >= thresh
     boxes = torch.stack([x1, y1, x2, y2], dim=-1).to(torch.int32)
     if k > 1:
@@ -151,9 +152,10 @@ def _detect_chunk(frames: torch.Tensor, cfg: SkinDetectorConfig
         boxes = torch.stack([boxes[..., 0] * k, boxes[..., 1] * k,
                              boxes[..., 2] * k + (k - 1),
                              boxes[..., 3] * k + (k - 1)], dim=-1)
-        lim = torch.tensor([W0 - 1, H0 - 1, W0 - 1, H0 - 1],
-                           dtype=torch.int32, device=dev)
-        boxes = torch.minimum(boxes, lim)
+        boxes = torch.stack([boxes[..., 0].clamp(max=W0 - 1),
+                             boxes[..., 1].clamp(max=H0 - 1),
+                             boxes[..., 2].clamp(max=W0 - 1),
+                             boxes[..., 3].clamp(max=H0 - 1)], dim=-1)
     boxes = torch.where(valid[:, None], boxes, 0).to(torch.int32)
     return boxes, valid
 

@@ -3,26 +3,36 @@
 Port of ``vhr_tpu/pipeline/live.py`` (``pack_output``, ``unpack_output``,
 ``LiveConfig``, ``LiveState``, ``LiveOutput``, ``init_state``,
 ``_masked_welch_psd``, ``_masked_welch_bpm``, ``_ring_pulse``,
-``_welch_snr``, ``_method_bpm``, ``step``, ``make_step``).  The per-frame
-update is the reference's live loop as tensor code: detection (or the
-fused kernel), landmark holdover, ROI mean, one causal SOS step, a masked
-ring write and a masked Welch BPM over the ring.  The method decides what
-the Welch runs over: the filtered green ring (``"green"``), a chrominance
-projection recomputed from the BGR ring each tick (``"chrom"``, ``"pos"``,
-``"omit"``), or all of ``adaptive_methods``, the tick's BPM from the one
-with the best consensus-anchored SNR (``"adaptive"``).
+``_welch_snr``, ``_method_bpm``, ``step``, ``make_step``,
+``_i420_frame_to_bgr``, ``bgr_to_i420_host``, ``LivePipeline``).  The
+per-frame update is the reference's live loop as tensor code: detection
+(or the fused kernel), landmark holdover, ROI mean, one causal SOS step, a
+masked ring write and a masked Welch BPM over the ring.  The method
+decides what the Welch runs over: the filtered green ring (``"green"``), a
+chrominance projection recomputed from the BGR ring each tick
+(``"chrom"``, ``"pos"``, ``"omit"``), or all of ``adaptive_methods``, the
+tick's BPM from the one with the best consensus-anchored SNR
+(``"adaptive"``).
 
 The update is written once, over a leading slot axis, and shared with the
 serving pool (``vhr_tpu_torch.serving``), which advances all its slots in one
 call; :func:`step` is that update with one slot.  The fused path runs kernel
 K4 (``ops.fused_cuda.fused_detect_roi_slots``) with the slot's frame counter
-read on the card, so a step on CUDA tensors never waits for the device.
+read on the card, so a step on CUDA tensors never waits for the device; its
+constant tables (the Welch basis, the projections' window plans) are cached
+on the device, since a copy from pageable host memory waits for the card's
+queue.
 The skin-detector path runs the detector on every frame and masks its
 result off the ``detect_every`` cadence for the same reason; the pool, which
 keeps its cadence on the host, skips the detector on off-cadence ticks.
+:class:`LivePipeline` rests on that: it enqueues frame N's step, then reads
+frame N-1's output, whose copy to pinned host memory was enqueued before
+step N, so its only wait for the card is that fetch.  With
+``transfer="i420"`` a step takes a planar YUV 4:2:0 frame and rebuilds BGR
+on the card (``ops.color.i420_to_bgr_flat``).
 
-Not ported yet: ``transfer="i420"`` (``ops/color.py``), ``LivePipeline``
-and ``step_multi``.
+Not ported yet: ``step_multi`` and ``k_faces > 1`` (ROADMAP queue 1,
+item 12).
 """
 
 from __future__ import annotations
@@ -36,16 +46,18 @@ import numpy as np
 import torch
 
 from ..config import BAND_LIVE, HRBand, ROIConfig
+from ..device import resolve_device
 from ..dsp import design, filters, projections, spectral
 from ..models import skin_detector
+from ..ops import color
 from ..ops import roi as vroi
 from ..ops.fused_cuda import fused_detect_roi_slots
 from ..ops.roi_means_cuda import roi_channel_means_cuda
 from .offline import DetectorFn
 
 __all__ = ["LiveConfig", "LiveState", "LiveOutput", "init_state", "step",
-           "make_step", "pack_output", "unpack_output"]
-
+           "make_step", "pack_output", "unpack_output", "bgr_to_i420_host",
+           "LivePipeline"]
 
 
 def pack_output(o: "LiveOutput") -> torch.Tensor:
@@ -164,9 +176,11 @@ def init_state(cfg: LiveConfig = LiveConfig(), device=None) -> LiveState:
 def _welch_basis(N: int, fps: float, band: HRBand, segment_seconds: float,
                  device: torch.device):
     """The banded DFT of the masked Welch: ``(nperseg, n_segments, cos (L,
-    B), sin (L, B), psd scale (B,), band freqs (B,) numpy)``, or ``None``
-    when no bin falls in the band.  Window, scaling and bin grid are
-    scipy's ``welch`` (periodic Hann, density, one-sided)."""
+    B), sin (L, B), psd scale (B,), band freqs (B,) float32 on the device,
+    bin spacing df)``, or ``None`` when no bin falls in the band.
+    Window, scaling and bin grid are scipy's ``welch`` (periodic Hann,
+    density, one-sided).  Cached per device, so a step copies nothing from
+    the host (such a copy would wait for the card's queue)."""
     nperseg = int(min(N, fps * segment_seconds))
     step_len = nperseg - nperseg // 2
     n_segments = (N - nperseg // 2) // step_len
@@ -185,15 +199,18 @@ def _welch_basis(N: int, fps: float, band: HRBand, segment_seconds: float,
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
+    band_freqs = freqs[band_idx]
+    df = float(band_freqs[1] - band_freqs[0]) if band_idx.size > 1 else 1.0
     return (nperseg, n_segments, t(np.cos(ang) * win[:, None]),
-            t(np.sin(ang) * win[:, None]), t(scale), freqs[band_idx])
+            t(np.sin(ang) * win[:, None]), t(scale), t(band_freqs), df)
 
 
 def _masked_welch_psd(ordered: torch.Tensor, n_valid: torch.Tensor,
                       fps: float, band: HRBand, segment_seconds: float):
     """Masked Welch over chronologically ordered rings ``(..., N)`` whose
     last ``n_valid (...)`` samples are real: -> ``(mean_psd (..., B),
-    band_freqs (B,) numpy, valid (...))``, or ``None`` for a degenerate
+    band_freqs (B,) on the device, their spacing df, valid (...))``, or
+    ``None`` for a degenerate
     band/fps.  Segments anchor at the start of the valid suffix, and only
     segments inside it count.  The in-band bins come from two float32
     matmuls (the banded DFT), not a full FFT."""
@@ -202,7 +219,7 @@ def _masked_welch_psd(ordered: torch.Tensor, n_valid: torch.Tensor,
                          ordered.device)
     if basis is None:
         return None
-    nperseg, n_seg, cos_m, sin_m, scale, band_freqs = basis
+    nperseg, n_seg, cos_m, sin_m, scale, band_freqs, df = basis
     dev = ordered.device
     n_valid = n_valid.to(torch.int64)
     starts = torch.arange(n_seg, device=dev) * (nperseg - nperseg // 2)
@@ -221,7 +238,7 @@ def _masked_welch_psd(ordered: torch.Tensor, n_valid: torch.Tensor,
     w = seg_ok.to(torch.float32)[..., None]
     mean_psd = (psd * w).sum(-2) / w.sum(-2).clamp(min=1.0)
     valid = seg_ok.any(-1) & (n_valid >= nperseg)
-    return mean_psd, band_freqs, valid
+    return mean_psd, band_freqs, df, valid
 
 
 def _masked_welch_bpm(ordered: torch.Tensor, n_valid: torch.Tensor,
@@ -234,9 +251,7 @@ def _masked_welch_bpm(ordered: torch.Tensor, n_valid: torch.Tensor,
         shape = ordered.shape[:-1]
         return (torch.zeros(shape, dtype=torch.float32, device=ordered.device),
                 torch.zeros(shape, dtype=torch.bool, device=ordered.device))
-    mean_psd, band_freqs, valid = res
-    freqs = torch.as_tensor(band_freqs, dtype=torch.float32,
-                            device=ordered.device)
+    mean_psd, freqs, _, valid = res
     return freqs[torch.argmax(mean_psd, dim=-1)] * 60.0, valid
 
 
@@ -260,16 +275,13 @@ def _ring_pulse(method: str, ordered_bgr: torch.Tensor,
                                       window_seconds)
 
 
-def _welch_snr(mean_psd: torch.Tensor, band_freqs: np.ndarray,
+def _welch_snr(mean_psd: torch.Tensor, freqs: torch.Tensor, df: float,
                target_bpm: torch.Tensor, guard_bins: int) -> torch.Tensor:
     """In-band SNR of Welch PSDs ``(..., B)`` around ``target_bpm (...)``:
     the power within ``guard_bins`` bins of the target over the rest of the
     band (``dsp.spectral.band_snr``'s targeted form on the live Welch's
-    banded grid)."""
-    f = torch.as_tensor(band_freqs, dtype=torch.float32,
-                        device=mean_psd.device)
-    df = float(band_freqs[1] - band_freqs[0]) if len(band_freqs) > 1 else 1.0
-    near = (f - (target_bpm / 60.0)[..., None]).abs() \
+    banded grid, bins ``freqs (B,)`` spaced ``df``)."""
+    near = (freqs - (target_bpm / 60.0)[..., None]).abs() \
         <= (guard_bins + 0.5) * df
     peak = torch.where(near, mean_psd, torch.zeros_like(mean_psd)).sum(-1)
     rest = mean_psd.sum(-1) - peak
@@ -318,16 +330,14 @@ def _method_bpm(cfg: LiveConfig, ring_raw: torch.Tensor,
                                 device=count.device),
                     torch.zeros(count.shape, dtype=torch.bool,
                                 device=count.device), zeros)
-        mean_psd, band_freqs, ok = res
-        freqs = torch.as_tensor(band_freqs, dtype=torch.float32,
-                                device=count.device)
+        mean_psd, freqs, df, ok = res
         bpms.append(freqs[torch.argmax(mean_psd, dim=-1)] * 60.0)
         oks.append(ok)
         psds.append(mean_psd)
     bpm_m, ok_m = torch.stack(bpms), torch.stack(oks)        # (M, ...)
     consensus = torch.nan_to_num(spectral.nanmedian(
         torch.where(ok_m, bpm_m, torch.full_like(bpm_m, float("nan"))), 0))
-    snr_m = torch.stack([_welch_snr(p, band_freqs, consensus,
+    snr_m = torch.stack([_welch_snr(p, freqs, df, consensus,
                                     cfg.snr_guard_bins) for p in psds])
     ranked = torch.where(ok_m, snr_m, torch.full_like(snr_m, -math.inf))
     choice = torch.argmax(ranked, dim=0)
@@ -451,16 +461,205 @@ def step(state: LiveState, frame: torch.Tensor, cfg: LiveConfig,
             LiveOutput(*(x[0] for x in out)))
 
 
+def _i420_frame_to_bgr(planar: torch.Tensor) -> torch.Tensor:
+    """``(H*3//2, W)`` planar YUV 4:2:0 -> ``(H, W, 3)`` uint8 BGR on the
+    frame's device, equal bit for bit to cv2's."""
+    h, w = planar.shape[0] * 2 // 3, planar.shape[1]
+    return color.i420_to_bgr_flat(planar[None], h, w).reshape(h, w, 3)
+
+
+def bgr_to_i420_host(frame_bgr) -> np.ndarray:
+    """Host-side BGR -> planar I420 (cv2), for ``transfer="i420"`` steps and
+    pools: 1.5 bytes a pixel on the wire instead of 3."""
+    import cv2
+    return cv2.cvtColor(np.ascontiguousarray(frame_bgr),
+                        cv2.COLOR_BGR2YUV_I420)
+
+
 def make_step(cfg: LiveConfig = LiveConfig(),
               detector: Optional[DetectorFn] = None, transfer: str = "bgr"):
     """The per-frame step as a ``(state, frame) -> (state, out)`` callable,
-    with its configuration checked once."""
+    with its configuration checked once.  ``transfer="i420"``: the step
+    takes a ``(H*3//2, W)`` uint8 planar YUV 4:2:0 frame
+    (:func:`bgr_to_i420_host`) and rebuilds BGR on the frame's device."""
     if transfer not in ("bgr", "i420"):
         raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
-    if transfer == "i420":
-        raise NotImplementedError(
-            "transfer='i420' needs ops/color.py, not yet ported (ROADMAP "
-            "queue 1, item 7)")
     _check_method(cfg)
     _check_fused(cfg, detector)
+    if transfer == "i420":
+        return lambda state, frame: step(
+            state, _i420_frame_to_bgr(torch.as_tensor(frame)), cfg, detector)
     return lambda state, frame: step(state, frame, cfg, detector)
+
+
+class LivePipeline:
+    """One-frame-deep pipelined live loop: enqueue frame N, then read N-1.
+
+    >>> pipe = LivePipeline(cfg)            # on the CUDA card
+    >>> for frame in frames:
+    ...     out = pipe.submit(frame)   # LiveOutput for the PREVIOUS frame
+    ...     if out is not None: draw(out)
+    >>> last = pipe.flush()
+
+    :meth:`submit` stages the frame (a pinned host buffer, one
+    ``non_blocking`` copy), enqueues its step, starts the copy of the
+    step's packed ``(10,)`` output into pinned host memory, and then waits
+    for the *previous* frame's copy: the card runs frame N while the host
+    turns frame N-1 into a :class:`LiveOutput`.  The answer lags one frame,
+    as the reference's async detector callback does.
+
+    * ``transfer="i420"``: frames are ``(H*3//2, W)`` planar YUV 4:2:0
+      (:func:`bgr_to_i420_host`), rebuilt to BGR on the card: half the
+      host-to-card bytes.
+    * ``fetch_every=N``: N outputs come back in one stacked copy;
+      :meth:`submit` returns a list of N outputs every N-th call (None
+      otherwise), at most N+1 frames late.
+    * ``frames_per_call=M``: M frames are uploaded in one stacked pinned
+      copy, run as M carried steps, and their outputs fetched in one copy;
+      :meth:`submit` returns a list of M outputs every M-th call, at most
+      2M frames late; :meth:`flush` runs the partial tail one frame at a
+      time.  Every frame still gets its own estimate.
+
+    The two batching levers exclude each other.  ``device`` is the CUDA
+    card by default (raises without one); pass ``device="cpu"`` for the
+    CPU, where every step runs to its end before :meth:`submit` returns.
+    ``k_faces > 1`` (``step_multi``) is not ported yet.
+    """
+
+    def __init__(self, cfg: LiveConfig = LiveConfig(),
+                 detector: Optional[DetectorFn] = None, k_faces: int = 1,
+                 transfer: str = "bgr", fetch_every: int = 1,
+                 frames_per_call: int = 1, device=None):
+        if transfer not in ("bgr", "i420"):
+            raise ValueError(f"transfer must be 'bgr' or 'i420', "
+                             f"got {transfer!r}")
+        _check_fused(cfg, detector)
+        _check_method(cfg)
+        if k_faces > 1:
+            raise NotImplementedError(
+                "k_faces > 1 needs step_multi and models/multiface.py, not "
+                "yet ported (ROADMAP queue 1, item 12)")
+        if fetch_every < 1:
+            raise ValueError("fetch_every must be >= 1")
+        if frames_per_call < 1:
+            raise ValueError("frames_per_call must be >= 1")
+        if fetch_every > 1 and frames_per_call > 1:
+            raise ValueError("fetch_every and frames_per_call are "
+                             "alternative batching levers; use one")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.transfer = transfer
+        self._fetch_every = fetch_every
+        self._frames_per_call = frames_per_call
+        self._step = make_step(cfg, detector, transfer)
+        self._state = init_state(cfg, self.device)
+        self._cuda = self.device.type == "cuda"
+        self._buf: list = []        # host frames of a partial call
+        self._batch: list = []      # packed outputs awaiting their fetch
+        self._inflight: list = []   # fetches started: (host tensor, event)
+        # Two pinned upload buffers per frame shape, used in turn; the
+        # event recorded after a buffer's copy guards its next write.
+        self._pinned: dict = {}
+        self.h2d_bytes = 0          # host-to-card frame bytes so far
+
+    def _upload(self, frames) -> torch.Tensor:
+        """Host frames (numpy) or tensors -> a tensor on the device."""
+        if isinstance(frames, torch.Tensor):
+            if frames.device != self.device:
+                self.h2d_bytes += frames.numel() * frames.element_size()
+            return frames.to(self.device, non_blocking=True)
+        a = np.ascontiguousarray(frames, dtype=np.uint8)
+        if not self._cuda:
+            return torch.from_numpy(a.copy())
+        self.h2d_bytes += a.nbytes
+        bufs = self._pinned.get(a.shape)
+        if bufs is None:
+            bufs = self._pinned[a.shape] = [
+                [torch.empty(a.shape, dtype=torch.uint8, pin_memory=True),
+                 torch.cuda.Event()] for _ in range(2)]
+            bufs.append(0)
+        turn = bufs[2]
+        buf, done = bufs[turn]
+        if not done.query():
+            done.synchronize()      # the copy that last read this buffer
+        buf.numpy()[...] = a
+        out = buf.to(self.device, non_blocking=True)
+        done.record()
+        bufs[2] = turn ^ 1
+        return out
+
+    def _run(self, frame: torch.Tensor) -> torch.Tensor:
+        self._state, out = self._step(self._state, frame)
+        return pack_output(out)
+
+    def _start_fetch(self, vecs: list):
+        """Start the copy of packed outputs to the host: one copy."""
+        v = torch.stack(vecs)
+        if not self._cuda:
+            return v, None
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def _finish(fetch) -> list:
+        """Wait for a fetch (the only wait for the card) and unpack it."""
+        host, ev = fetch
+        if ev is not None:
+            ev.synchronize()
+        a = host.numpy()
+        return [unpack_output(a[i]) for i in range(a.shape[0])]
+
+    def submit(self, frame):
+        """Enqueue ``frame``.  With ``fetch_every=1`` (default): returns the
+        previous frame's LiveOutput (host arrays), or None on the very first
+        call.  With ``fetch_every=N`` or ``frames_per_call=M``: returns a
+        list of the N (M) oldest pending LiveOutputs every Nth (Mth) call,
+        None otherwise."""
+        ready, self._inflight = self._inflight, []
+        if self._frames_per_call > 1:
+            self._buf.append(frame)
+            if len(self._buf) < self._frames_per_call:
+                self._inflight = ready
+                return None
+            if all(isinstance(f, np.ndarray) for f in self._buf):
+                frames = self._upload(np.stack(self._buf))  # one upload
+            else:
+                frames = torch.stack([self._upload(torch.as_tensor(f))
+                                      for f in self._buf])
+            self._buf = []
+            self._inflight.append(self._start_fetch(
+                [self._run(f) for f in frames]))
+        else:
+            self._batch.append(self._run(self._upload(frame)))
+            if len(self._batch) == self._fetch_every:
+                self._inflight.append(self._start_fetch(self._batch))
+                self._batch = []
+        if not ready:
+            return None
+        outs = self._finish(ready[0])
+        if self._fetch_every == 1 and self._frames_per_call == 1:
+            return outs[0]
+        return outs
+
+    def flush(self):
+        """Drain the frames in flight (call once after the last submit).
+        Returns a LiveOutput (``fetch_every=1``), a list, or None."""
+        for f in self._buf:                  # partial tail, one at a time
+            self._batch.append(self._run(self._upload(f)))
+        self._buf = []
+        if self._batch:
+            self._inflight.append(self._start_fetch(self._batch))
+            self._batch = []
+        outs: list = []
+        for fetch in self._inflight:
+            outs.extend(self._finish(fetch))
+        self._inflight = []
+        if not outs:
+            return None
+        if (self._fetch_every == 1 and self._frames_per_call == 1
+                and len(outs) == 1):
+            return outs[0]
+        return outs

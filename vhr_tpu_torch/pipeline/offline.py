@@ -22,7 +22,9 @@ package's name and values so callers of both packages read alike.
 the same two forms over a video file in chunks (bounded memory for long
 recordings), with the tracking state carried across chunk boundaries so
 the results equal a whole-clip pass; the detect-then-reduce chunks take
-their ROI means on kernel K3.
+their ROI means on kernel K3, or from the I420 planes.  The stream decodes
+on one cv2 thread or several (``n_decoders``) and stages BGR or planar I420
+(``transfer``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..dsp.filters import forward_fill
 from ..dsp.projections import PULSES
 from ..io.video import ChunkReader
 from ..models import skin_detector
+from ..ops import color
 from ..ops import reduce as vreduce
 from ..ops import roi as vroi
 from ..ops import windows as vwin
@@ -115,9 +118,19 @@ def _track(frames: torch.Tensor, cfg: PipelineConfig, det_fn: DetectorFn,
     holdover from ``carry`` and the measurement ROI (zeroed where the track
     is invalid): ``(track, rois, carry_out)``."""
     T, H, W, _ = frames.shape
-    dev = frames.device
+    b_sub, v_sub = det_fn(frames[::detect_every] if detect_every > 1
+                          else frames)
+    return _cadence_track(b_sub, v_sub, T, cfg, detect_every, W, H, carry)
+
+
+def _cadence_track(b_sub: torch.Tensor, v_sub: torch.Tensor, T: int,
+                   cfg: PipelineConfig, detect_every: int, W: int, H: int,
+                   carry: Optional[vroi.HoldoverCarry] = None
+                   ) -> Tuple[vroi.BoxTrack, torch.Tensor, vroi.HoldoverCarry]:
+    """:func:`_track` from the detections of the cadence frames ``[::
+    detect_every]`` of ``T`` frames of a ``W x H`` frame."""
+    dev = b_sub.device
     if detect_every > 1:
-        b_sub, v_sub = det_fn(frames[::detect_every])
         raw_boxes = torch.zeros((T, 4), dtype=b_sub.dtype, device=dev)
         raw_valid = torch.zeros((T,), dtype=torch.bool, device=dev)
         attempted = torch.zeros((T,), dtype=torch.bool, device=dev)
@@ -125,8 +138,7 @@ def _track(frames: torch.Tensor, cfg: PipelineConfig, det_fn: DetectorFn,
         raw_valid[::detect_every] = v_sub
         attempted[::detect_every] = True
     else:
-        raw_boxes, raw_valid = det_fn(frames)
-        attempted = None
+        raw_boxes, raw_valid, attempted = b_sub, v_sub, None
     track, carry = vroi.holdover_with_carry(
         raw_boxes, raw_valid, cfg.roi.landmark_hold_frames, carry,
         attempted=attempted)
@@ -434,11 +446,28 @@ def measure_app_welch(frames: torch.Tensor, fps: float,
                             detect_every=detect_every)
     return _host(fps, *_app_welch_bpm(trace.bgr, trace.valid, fps, cfg))
 
+def _open_reader(video_path: str, chunk_frames: int, device: torch.device,
+                 n_decoders: int, transfer: str) -> ChunkReader:
+    """The chunk reader for ``transfer``: planar I420 where the frame's
+    sides are even, else BGR, as the JAX package stages BGR when its native
+    reader refuses I420."""
+    if transfer not in ("bgr", "i420"):
+        raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
+    if transfer == "i420":
+        try:
+            return ChunkReader(video_path, chunk_frames, device, n_decoders,
+                               fmt="i420")
+        except IOError:
+            pass                  # odd sides: stage BGR instead
+    return ChunkReader(video_path, chunk_frames, device, n_decoders)
+
+
 def _stream(video_path: str, cfg: PipelineConfig,
             detector: Optional[DetectorFn], chunk_frames: int,
             use_fused: bool, detect_row_pool: int,
             gate_margin: Optional[float], detect_every: int,
-            device: torch.device
+            device: torch.device, n_decoders: int = 1,
+            transfer: str = "bgr"
             ) -> Tuple[torch.Tensor, torch.Tensor, float, float, float]:
     """The chunked pass of :func:`extract_signals_streaming`, its outputs
     left on ``device``: ``(bgr (T, 3), valid (T,), fps, seconds waiting on
@@ -450,15 +479,43 @@ def _stream(video_path: str, cfg: PipelineConfig,
         # Every chunk starts on a detection frame, so the per-chunk stride
         # [0::N] stays on the global cadence.
         raise ValueError("detect_every must divide chunk_frames")
+    reader = _open_reader(video_path, chunk_frames, device, n_decoders,
+                          transfer)
+    H, W = reader.height, reader.width
+    # Planar chunks become BGR at the 128-column padded width, whose rows
+    # the fused kernel takes (W*3 % 128 == 0); the padding is zero.
+    wpad = -(-W // 128) * 128
+    i420 = reader.fmt == "i420"
     if use_fused:
         carry = init_carry(device)
 
         def step(frames, start, carry):
+            if i420:
+                frames = color.i420_to_bgr_flat(frames, H, W, wpad)
             res, carry = fused_detect_roi_carry(
                 frames, carry, roi=cfg.roi, detect_every=detect_every,
                 detect_row_pool=detect_row_pool, gate_margin=gate_margin,
                 phase=start)
             return res.means, res.roi_valid, carry
+    elif i420:
+        det_fn = detector or skin_detector.detect_faces
+        carry = vroi.init_holdover_carry(device)
+
+        def step(raw, start, carry):
+            # The plane path: only the cadence frames become BGR (at the
+            # padded width, as the JAX stream's detector sees them); the
+            # means come from the planes (ops.color.i420_roi_means).
+            sub = color.i420_to_bgr_flat(raw[::detect_every], H, W, wpad)
+            b_sub, v_sub = det_fn(sub.reshape(sub.shape[0], H, wpad, 3))
+            track, rois, carry = _cadence_track(
+                b_sub, v_sub, raw.shape[0], cfg, detect_every, wpad, H,
+                carry)
+            # Out of the zero padding: the planes are the true width.
+            rois = torch.stack([rois[:, 0], rois[:, 1],
+                                rois[:, 2].clamp(max=W),
+                                rois[:, 3].clamp(max=H)], 1)
+            means, _ = color.i420_roi_means(raw, rois, H, W)
+            return means, track.valid, carry
     else:
         det_fn = detector or skin_detector.detect_faces
         carry = vroi.init_holdover_carry(device)
@@ -471,12 +528,12 @@ def _stream(video_path: str, cfg: PipelineConfig,
 
     bgr_parts, valid_parts = [], []
     t_wait = t_step = 0.0
-    with ChunkReader(video_path, chunk_frames, device) as reader:
+    with reader:
         fps = reader.fps
         chunks = iter(reader)
         while True:
             t0 = time.perf_counter()
-            item = next(chunks, None)        # blocks on the decode thread
+            item = next(chunks, None)        # blocks on the decode threads
             t_wait += time.perf_counter() - t0
             if item is None:
                 break
@@ -511,8 +568,8 @@ def extract_signals_streaming(video_path: str,
     """Chunked-decode signal extraction for long recordings.
 
     Frames stream from the file in chunks of ``chunk_frames``
-    (:class:`vhr_tpu_torch.io.video.ChunkReader`: cv2 decode one chunk ahead
-    on a thread, pinned buffers, copies to the card on a side stream); the
+    (:class:`vhr_tpu_torch.io.video.ChunkReader`: cv2 decode ahead on
+    threads, pinned buffers, copies to the card on a side stream); the
     detector and ROI reduction run per chunk with the holdover state carried
     across chunk boundaries, so the results equal a whole-clip pass.  The
     chunk steps' outputs stay on ``device`` and come back to the host once,
@@ -526,12 +583,20 @@ def extract_signals_streaming(video_path: str,
       chunk's first global frame index as ``phase``), its ``(6,)`` carry
       kept on the card between chunks; ``detect_row_pool`` and
       ``gate_margin`` are its knobs.  Needs ``H % 8 == 0``, ``W*3 % 128 ==
-      0`` and ``detector=None``.
+      0`` (with ``transfer="i420"``, ``H % 8 == 0``) and ``detector=None``.
 
-    ``detect_every`` must divide ``chunk_frames``.  The port has no native
-    framestore (it needs OpenCV's C++ headers), so ``prefer_native``,
-    ``n_decoders`` and ``transfer="i420"`` take the JAX package's branch for
-    an absent native reader: one cv2 decoder staging BGR.
+    ``n_decoders > 1`` decodes disjoint segments of the file on that many
+    cv2 threads (at most 8); the chunks, and so the results, are unchanged.
+    ``transfer="i420"`` stages planar YUV 4:2:0 (1.5 bytes a pixel, the
+    conversion on the decode threads) and rebuilds BGR on ``device`` bit
+    for bit as cv2 does (``ops.color.i420_to_bgr_flat``), at the width
+    padded to 128 columns: the fused form runs K1 on the rebuilt chunk; the
+    detect form rebuilds only the cadence frames for the detector and takes
+    the ROI means from the planes (``ops.color.i420_roi_means``, no K3),
+    within 1.5 u8 of the BGR means.  Odd frame sides stage BGR instead.
+    ``prefer_native`` is accepted for the JAX signature: the port's reader
+    is the cv2 one (the native framestore needs OpenCV's C++ headers).
+    ``detect_every`` must divide ``chunk_frames``.
 
     Returns ``(bgr (T, 3) float32, valid (T,) bool, fps)`` as host numpy.
     If ``ring_stats`` is a dict it receives ``host_wait_on_decode_s`` (time
@@ -541,12 +606,13 @@ def extract_signals_streaming(video_path: str,
     to the CUDA card (raises without one); pass ``device="cpu"`` for the
     CPU.
     """
-    del prefer_native, n_decoders
+    del prefer_native
     if transfer not in ("bgr", "i420"):
         raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
     bgr, valid, fps, t_wait, t_dev = _stream(
         video_path, cfg, detector, chunk_frames, use_fused, detect_row_pool,
-        gate_margin, detect_every, resolve_device(device))
+        gate_margin, detect_every, resolve_device(device), n_decoders,
+        transfer)
     t0 = time.perf_counter()
     bgr, valid = bgr.cpu().numpy(), valid.cpu().numpy()
     t_dev += time.perf_counter() - t0

@@ -28,9 +28,13 @@ and advances all slots per tick:
   projections run over all ``(S, N, 3)`` BGR rings of the pool at once, and
   under ``"adaptive"`` each served line names the method behind its BPM.
 
-Not ported yet: ``transfer="i420"`` (needs ``ops/color.py``, ROADMAP queue 1
-item 7), ``mesh=`` (queue 1 item 14) and ``k_faces > 1`` (queue 1 item 12);
-each raises ``NotImplementedError``.
+- **BGR or I420 on the wire.**  With ``transfer="i420"`` frames are ``(H*3//2,
+  W)`` planar YUV 4:2:0 (``pipeline.live.bgr_to_i420_host``), half the
+  bytes of BGR in the pinned upload; the tick rebuilds BGR on the card
+  (``ops.color.i420_to_bgr_flat``) before the same update.
+
+Not ported yet: ``mesh=`` (ROADMAP queue 1, item 14) and ``k_faces > 1``
+(queue 1, item 12); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 
 from . import interop
 from .device import resolve_device
+from .ops import color
 from .pipeline.live import (DetectorFn, LiveConfig, LiveOutput, LiveState,
                             _check_fused, _check_method, _finish_batched,
                             _fused_track, _skin_track, _sos, _zero_state,
@@ -77,10 +82,11 @@ def init_state_batched(cfg: LiveConfig, n_slots: int, k_faces: int = 1,
 def _step_batched_impl(state: LiveState, frames: torch.Tensor,
                        active: torch.Tensor, reset: torch.Tensor,
                        pool_phase: int, cfg: LiveConfig,
-                       detector: Optional[DetectorFn]
+                       detector: Optional[DetectorFn], i420: bool = False
                        ) -> Tuple[LiveState, torch.Tensor]:
-    """One tick: advance all S slots from their ``(S, H, W, 3)`` frames ->
-    ``(state, packed (S, 10))``.
+    """One tick: advance all S slots from their ``(S, H, W, 3)`` frames
+    (``(S, H*3//2, W)`` planar I420 frames when ``i420``) -> ``(state,
+    packed (S, 10))``.
 
     - ``reset[s]``: zero slot s's state first (a client just attached).
     - ``active[s]``: slot s received a frame this tick; an inactive slot
@@ -92,6 +98,9 @@ def _step_batched_impl(state: LiveState, frames: torch.Tensor,
       the single live step.
     """
     S = frames.shape[0]
+    if i420:
+        h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+        frames = color.i420_to_bgr_flat(frames, h, w).reshape(S, h, w, 3)
     state = LiveState(*(torch.where(
         reset.reshape((S,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
         for x in state))
@@ -122,7 +131,8 @@ class BpmServer:
     >>> outs[a].bpm, outs[b].bpm
 
     All clients share one frame geometry per server.  Frames are ``(H, W,
-    3)`` uint8 BGR numpy arrays or tensors; the state lives on ``device``:
+    3)`` uint8 BGR numpy arrays or tensors (``(H*3//2, W)`` planar I420
+    with ``transfer="i420"``); the state lives on ``device``:
     the CUDA card by default (raises without one), the CPU only with
     ``device="cpu"``.
     """
@@ -139,10 +149,6 @@ class BpmServer:
         if transfer not in ("bgr", "i420"):
             raise ValueError(f"transfer must be 'bgr' or 'i420', "
                              f"got {transfer!r}")
-        if transfer == "i420":
-            raise NotImplementedError(
-                "transfer='i420' needs ops/color.py, not yet ported "
-                "(ROADMAP queue 1, item 7)")
         if mesh is not None:
             raise NotImplementedError(
                 "a pool sharded over devices is not yet ported (ROADMAP "
@@ -275,13 +281,13 @@ class BpmServer:
                 self.device, non_blocking=True)
             self._state, packed = _step_batched_impl(
                 self._state, batch, masks[0], masks[1], self._tick_count,
-                self.cfg, self._detector)
+                self.cfg, self._detector, self.transfer == "i420")
             self._tick_count += 1
         return (list(frames), packed)
 
     def _upload(self, frames: Dict[int, object], shape: tuple,
                 active: np.ndarray) -> torch.Tensor:
-        """The ``(S, H, W, 3)`` u8 batch on the pool's device; rows of
+        """The ``(S,) + frame shape`` u8 batch on the pool's device; rows of
         slots without a frame are zero."""
         S = self.n_slots
         on_card = {s: f for s, f in frames.items()
@@ -829,7 +835,8 @@ class _BpmHandler(socketserver.StreamRequestHandler):
                 pass
             return
         h, w = srv.frame_shape
-        nbytes, shape = h * w * 3, (h, w, 3)   # the pool's transfer is bgr
+        nbytes = (h * 3 // 2) * w if transfer == "i420" else h * w * 3
+        shape = (h * 3 // 2, w) if transfer == "i420" else (h, w, 3)
         conn = _ClientConn(slot=-1,
                            inbox=queue.Queue(maxsize=srv.max_queue),
                            wfile=writer)
