@@ -152,7 +152,24 @@ Phases, each of which must pass (any failure exits non-zero):
    the truth; ``apps.serve_bpm.main(["--connect", ..., "--video", ...,
    "--max-frames", "200"])`` against a served I420 pool must exit 0 and
    print ``sent 200 frames``;
-13. launch K4 twice more on the fused pool's last frames and state, which
+13. the analysis harness through its CLI, ``analysis.main.main([...,
+   "--device", "cuda"])``, into a temporary results and cache directory:
+   the flagship clip's first 360 frames (12 s, full width; the phase's
+   time budget) written as mp4v with a truth CSV every 0.5 s, swept
+   over ``spatial_resolution`` (1080p, 720p, 480p, 360p, 240p, each resize
+   on the card) and ``colour_noise`` (0-40 sigma, drawn on the card) with
+   ``green_avg`` and ``evm`` (K6 launched); then the MediaPipe phase's
+   drawn face as mp4v, ``--degradation original --methods green_avg
+   --detector mediapipe`` (K5 launched: the detector fuses its stages on a
+   CUDA card).  Each sweep exits 0 with every level's ``.npy`` of the rows
+   ``summary.json`` records, finite; the control levels (1080p, 0std) hold
+   green_avg's median BPM within 8 BPM of the truth and the EVM MAE within
+   4 BPM, and so does the face's green_avg median; the 1080p
+   level's green_avg rows equal ``offline.measure_green_avg`` on the same
+   decoded frames on the card; the 720p resize of a 32-frame chunk on the
+   card is within 1 u8 of the CPU's.  Logs ``summary.json``'s stage times
+   and each measure's frames/s over its levels;
+14. launch K4 twice more on the fused pool's last frames and state, which
    must give the same bits both times (each launch leaves its accumulators
    clean), and time each pool tick (device time, and wall time with the
    host-to-card upload and the fetch) and each kernel against its plain
@@ -169,7 +186,7 @@ The launch counters are set to 0 just before each of the main paths (the
 offline measure, each call of the other measures, each stream and the
 file measure, ``magnify``, the EVM measure, the MediaPipe measure, each
 mode of the live pipeline, the fused pool, the skin pool, the adaptive
-pool, the I420 pool pair, the servers, the live app)
+pool, the I420 pool pair, the servers, the live app, each analysis sweep)
 and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
 and the skin pool.  The record's launches: K1's in the offline run, the
@@ -177,7 +194,9 @@ other measures' fused calls, the 4-decoder stream and the fused I420
 stream, K2's in the offline run, the other measures' ``"roi"`` calls, the
 MediaPipe measure and the skin pool, K3's in the detect stream, K4's in the
 fused and the adaptive pool, the live pipeline's four modes and the I420
-pool pair.  K2's time is at 1080p x 960, and its time
+pool pair, K5's in the MediaPipe measure and the MediaPipe sweep, K6's in
+``magnify``, the EVM measure and the degradation sweep, K7's in
+``magnify``.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
 logged with their bounds.
 The line before the last is the kernels' JSON record: per kernel its time
@@ -235,6 +254,12 @@ EVM_MAE_TOL = 4.0      # tests/test_evm.py's bound
 STREAM_CHUNK = 256
 DECODERS, MP4V_T, MP4V_CHUNK = 4, 240, 32
 I420_TOL = 1.5         # u8: plane means against reconstruct-then-reduce
+# The analysis harness: its degradation sweep runs on the flagship clip's
+# first ANALYSIS_T frames (12 s at full width; the whole clip's sweep of 10
+# levels took 304 s on an H100 host, nearly all of it cv2's mp4v encode and
+# decode on the host), and the resize on the card is held against the CPU
+# on one chunk of ANALYSIS_RESIZE_T frames of the 720p level.
+ANALYSIS_T, ANALYSIS_RESIZE_T = 360, 32
 # The live pipeline: one 720p subject, 760 frames, four modes; the
 # profiled window of submits after a warm-up.
 LIVE_FRAMES, LIVE_WARM, LIVE_PROFILED = 760, 40, 100
@@ -1791,9 +1816,10 @@ def run_mediapipe(dev, cfg) -> dict:
                              f"of {expect}, MAE {mae_ref}, IoU min "
                              f"{float(iou.min())}")
 
-    # Fused against unfused: the product detector (unfused nets) and the
-    # landmarks of both mesh nets on the same detections.
-    unfused = mpf.make_mediapipe_detector()
+    # Fused against unfused: the product detector with its nets op by op
+    # (fuse_stages=False), and the landmarks of both mesh nets on the same
+    # detections.
+    unfused = mpf.make_mediapipe_detector(fuse_stages=False)
     b_f, v_f = det(frames)
     b_u, v_u = unfused(frames)
     agree = float((v_f == v_u).double().mean())
@@ -2182,6 +2208,195 @@ def run_server(dev) -> dict:
     return dict(wall=wall, rtt=rtts)
 
 
+def run_analysis(dev, frames, card: str) -> dict:
+    """The analysis harness through its CLI entry point,
+    ``analysis.main.main``, on the card: the flagship clip's first
+    ANALYSIS_T frames as mp4v with a truth CSV, swept over
+    ``spatial_resolution`` and ``colour_noise`` with ``green_avg`` and
+    ``evm`` (K6); then the MediaPipe phase's drawn face, ``original`` with
+    ``green_avg`` under ``--detector mediapipe`` (K5).  Counters from 0
+    before each sweep, read after."""
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.analysis import context
+    from vhr_tpu_torch.analysis import main as amain
+    from vhr_tpu_torch.analysis.degradation import spatial_resolution
+    from vhr_tpu_torch.analysis.measurement import green_avg
+    from vhr_tpu_torch.config import PipelineConfig
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.ops import evm_cuda, meshblocks_cuda as mb
+    from vhr_tpu_torch.pipeline import offline
+
+    h, w = frames.shape[1:3]
+    out = {"launches": {}}
+    saved = {k: os.environ.get(k) for k in ("VHR_RESULTS_DIR",
+                                            "VHR_CACHE_DIR")}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    results = os.path.join(tmp, "results")
+    os.environ["VHR_RESULTS_DIR"] = results
+    os.environ["VHR_CACHE_DIR"] = os.path.join(tmp, "cache")
+
+    def write(name, clip):
+        """``clip`` as ``<name>.mp4`` (mp4v) and ``<name>.csv`` (the truth
+        every 0.5 s) in ``tmp``."""
+        t0 = time.perf_counter()
+        vio.write_video(clip.cpu().numpy(), os.path.join(tmp, f"{name}.mp4"),
+                        FPS)
+        with open(os.path.join(tmp, f"{name}.csv"), "w") as f:
+            f.write("timestamp,heart_rate\n" + "".join(
+                f"{0.5 * i},{TRUTH_BPM}\n"
+                for i in range(int(2 * clip.shape[0] / FPS) + 1)))
+        log(f"[analysis] {name} clip {tuple(clip.shape)} written as mp4v in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def sweep(name, n, argv, counter):
+        """``main`` on ``<name>.mp4`` of ``n`` frames, counters from 0: the
+        launches, every level's ``.npy`` against ``summary.json``, the
+        stage times."""
+        evm_cuda.LAUNCHES = mb.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = amain.main(["--video", os.path.join(tmp, f"{name}.mp4"),
+                         "--results-dir", results, "--device", "cuda"]
+                        + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        base = os.path.join(results, name)
+        with open(os.path.join(base, "summary.json")) as f:
+            summary = json.load(f)
+        launches = {"K6": evm_cuda.LAUNCHES, "K5": mb.LAUNCHES}
+        log(f"[analysis] main {' '.join(argv)}: exit {rc} in {wall:.1f} s; "
+            f"kernel launches {launches}")
+        if rc != 0 or launches[counter] < 1:
+            raise AssertionError(f"analysis sweep {argv}: exit {rc}, "
+                                 f"launches {launches}")
+        for deg, by_m in summary["rows"].items():
+            for m, by_lbl in by_m.items():
+                for lbl, rows_n in by_lbl.items():
+                    arr = np.load(os.path.join(base, "measurements", m, deg,
+                                               f"{lbl}.npy"))
+                    if arr.shape != (rows_n, 2) or not np.isfinite(arr).all():
+                        raise AssertionError(f"{m}/{deg}/{lbl}.npy: "
+                                             f"{arr.shape}, {rows_n} rows")
+        for stage, v in summary["stage_timings"].items():
+            rate = ""
+            if stage.startswith("measure:"):
+                rate = (f", {v['count'] * n / v['total_s']:.1f} frames/s "
+                        f"over {v['count']} levels")
+            log(f"[analysis] {name} {stage}: {v['total_s']:.3f} s, "
+                f"{v['count']} calls, {v['mean_ms']:.1f} ms a call{rate} "
+                f"({card})")
+        out["launches"][counter] = launches[counter]
+        out[name] = dict(wall=wall, stages=summary["stage_timings"])
+        return base, summary
+
+    def median_bpm(base, m, deg, lbl):
+        """A level's rows and the median of their BPM (every row the
+        measure returns is past its acquisition)."""
+        arr = np.load(os.path.join(base, "measurements", m, deg,
+                                   f"{lbl}.npy"))
+        return arr, float(np.median(arr[:, 1])) if len(arr) else math.nan
+
+    try:
+        log(f"[analysis] the sweep clip is the flagship clip's first "
+            f"{ANALYSIS_T} of {frames.shape[0]} frames at full width (the "
+            f"phase's time budget)")
+        clip = frames[:ANALYSIS_T]
+        write("flagship", clip)
+        base, summary = sweep(
+            "flagship", ANALYSIS_T,
+            ["--degradation", "spatial_resolution", "colour_noise",
+             "--methods", "green_avg", "evm"], "K6")
+        levels = {d: list(by_m["green_avg"])
+                  for d, by_m in summary["rows"].items()}
+        want = {"spatial_resolution": [f"{h}p"] + [
+            f"{th}p" for th in spatial_resolution.TARGET_HEIGHTS if th < h],
+            "colour_noise": ["0std", "5std", "10std", "20std", "40std"]}
+        if levels != want:
+            raise AssertionError(f"levels {levels}, expected {want}")
+        for deg in want:
+            log(f"[analysis] {deg} rows and median BPM: " + ", ".join(
+                f"{m} {lbl} {len(a)} {med:.3f}"
+                for m in ("green_avg", "evm") for lbl in want[deg]
+                for a, med in [median_bpm(base, m, deg, lbl)]))
+
+        # The control levels hold the pulse: green_avg's median and the EVM
+        # measure's MAE against the truth.
+        for deg, lbl in (("spatial_resolution", f"{h}p"),
+                         ("colour_noise", "0std")):
+            g, med = median_bpm(base, "green_avg", deg, lbl)
+            e, _ = median_bpm(base, "evm", deg, lbl)
+            mae = float(np.abs(e[:, 1] - TRUTH_BPM).mean()) if len(e) \
+                else math.inf
+            log(f"[analysis] control {deg}/{lbl}: green_avg {len(g)} rows, "
+                f"median {med:.3f} BPM; evm {len(e)} rows, MAE {mae:.4f} vs "
+                f"{TRUTH_BPM:g} BPM")
+            if not abs(med - TRUTH_BPM) <= BPM_TOL or mae > EVM_MAE_TOL:
+                raise AssertionError(f"control level {deg}/{lbl}: median "
+                                     f"{med}, EVM MAE {mae}")
+
+        # The original level's green_avg rows are the library measure's on
+        # the same decoded frames on the card.
+        decoded, fps = vio.read_video(os.path.join(tmp, "flagship.mp4"))
+        cfg = PipelineConfig(window_seconds=green_avg.WINDOW_SIZE,
+                             acquisition_seconds=green_avg.ACQUISITION_TIME)
+        lib = offline.to_measurement_array(*offline.measure_green_avg(
+            torch.as_tensor(decoded, device=dev), fps, cfg))
+        plug, _ = median_bpm(base, "green_avg", "spatial_resolution",
+                             f"{h}p")
+        if lib.shape != plug.shape or not np.array_equal(lib, plug):
+            raise AssertionError(f"green_avg plugin != measure_green_avg: "
+                                 f"{plug.shape} vs {lib.shape}")
+        log(f"[analysis] green_avg plugin == offline.measure_green_avg on "
+            f"the decoded frames on the card: {len(lib)} rows equal")
+
+        # One chunk of the 720p level's resize on the card against the CPU.
+        th = spatial_resolution.TARGET_HEIGHTS[0]
+        tw = int(round(w * th / h))
+        tw -= tw % 2
+        chunk = decoded[:ANALYSIS_RESIZE_T]
+        got = spatial_resolution._resize_op(th, tw)(chunk)
+        context.set_device("cpu")
+        try:
+            ref = spatial_resolution._resize_op(th, tw)(chunk)
+        finally:
+            context.set_device(None)
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        log(f"[analysis] resize to {tw}x{th} of {len(chunk)} frames, card "
+            f"vs CPU: max |diff| {int(diff.max())} u8, equal on "
+            f"{float((diff == 0).mean()):.6f} of the values")
+        if got.shape != (len(chunk), th, tw, 3) or diff.max() > 1:
+            raise AssertionError(f"resize card vs CPU: {got.shape}, "
+                                 f"{int(diff.max())} u8")
+        del decoded
+
+        # The MediaPipe detector through the sweep (K5), on the MediaPipe
+        # phase's whole clip.
+        face, _ = make_face_clip(dev, frames.shape[0], h, w, seed=SEED + 8)
+        write("face", face)
+        try:
+            base, _ = sweep("face", face.shape[0],
+                            ["--degradation", "original", "--methods",
+                             "green_avg", "--detector", "mediapipe"], "K5")
+        finally:
+            context.set_detector("skin")
+        del face
+        g, med = median_bpm(base, "green_avg", "original", "original")
+        log(f"[analysis] face/original green_avg --detector mediapipe: "
+            f"{len(g)} rows, median {med:.3f} BPM")
+        if not abs(med - TRUTH_BPM) <= BPM_TOL:
+            raise AssertionError(f"MediaPipe sweep: median {med}")
+    finally:
+        tmp_dir.cleanup()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2433,7 +2648,16 @@ def main() -> int:
     run_apps(dev, live_run["bgr_frames"], live_run["truth"])
     log(f"[apps] phase in {time.perf_counter() - t0:.1f} s")
 
-    # 13. Timing (CUDA events; frames resident on the card unless stated).
+    # 13. The analysis harness: a degradation sweep with green_avg and evm
+    # (K6), then green_avg under the MediaPipe detector (K5); counters from
+    # 0 before each sweep.
+    t0 = time.perf_counter()
+    analysis = run_analysis(dev, frames, card)
+    log(f"[analysis] phase in {time.perf_counter() - t0:.1f} s ({card})")
+    launches["K6"] += analysis["launches"]["K6"]
+    launches["K5"] += analysis["launches"]["K5"]
+
+    # 14. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)

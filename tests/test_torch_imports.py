@@ -1,8 +1,10 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its own
 copies of the JAX package's jax-free modules and helpers (configuration,
-filter design, the MediaPipe nets' numpy helpers) equal the originals."""
+filter design, the MediaPipe nets' numpy helpers, the analysis harness's
+host-side plugins and utilities) equal the originals."""
 
 import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +25,7 @@ from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
 import vhr_tpu_torch
 from vhr_tpu_torch import config, interop, serving
+from vhr_tpu_torch.analysis import main as analysis_main
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
 from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
 from vhr_tpu_torch.dsp import design
@@ -115,6 +118,60 @@ def test_live_slice_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.split() == ["False", "False"]
+
+
+_ANALYSIS = ["vhr_tpu_torch.analysis." + m for m in (
+    "main", "context", "registry", "metrics.mae", "metrics.accuracy",
+    "metrics.signals", "degradation.common", "degradation.dummy",
+    "degradation.temporal_resolution", "degradation.crf",
+    "degradation.encoding", "degradation.colour_quantisation",
+    "degradation.colour_noise", "degradation.spatial_resolution",
+    "measurement.green_avg", "measurement.chrom", "measurement.pos",
+    "measurement.omit", "measurement.adaptive", "measurement.ica",
+    "measurement.app_welch", "measurement.green_avg_psd",
+    "measurement.evm", "measurement.dummy")] + [
+    "vhr_tpu_torch.utils.logging", "vhr_tpu_torch.utils.psd_plot"]
+
+
+def test_analysis_modules_import_without_jax():
+    """Every module of the analysis harness, its plugins and utilities
+    loads neither jax nor any module of ``vhr_tpu`` in a fresh
+    interpreter."""
+    code = ("import importlib, sys\n"
+            f"for m in {_ANALYSIS!r}: importlib.import_module(m)\n"
+            "print('jax' in sys.modules, "
+            "any(m == 'vhr_tpu' or m.startswith('vhr_tpu.') "
+            "for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+# The port's verbatim copies of the JAX package's jax-free modules: each
+# equals its original line for line below the module docstring.
+_COPIES = ["utils/logging.py", "utils/psd_plot.py",
+           "analysis/metrics/mae.py", "analysis/metrics/accuracy.py",
+           "analysis/metrics/signals.py", "analysis/degradation/common.py",
+           "analysis/degradation/dummy.py",
+           "analysis/degradation/temporal_resolution.py",
+           "analysis/degradation/crf.py", "analysis/degradation/encoding.py",
+           "analysis/measurement/dummy.py"]
+
+
+@pytest.mark.parametrize("rel", _COPIES + ["align_truth_to_measurement"])
+def test_verbatim_copy_equals_jax_package(rel):
+    if rel == "align_truth_to_measurement":
+        from vhr_tpu.io import video as jvio
+        from vhr_tpu_torch.io import video as tvio
+        assert inspect.getsource(tvio.align_truth_to_measurement) == \
+            inspect.getsource(jvio.align_truth_to_measurement)
+        return
+
+    def body(root):
+        text = (REPO / root / rel).read_text()
+        return text.split('"""', 2)[2].splitlines()
+
+    assert body("vhr_tpu_torch") == body("vhr_tpu")
 
 
 def test_live_plot_copy_equals_jax_package():
@@ -289,7 +346,7 @@ def _app(main, *argv):
                                    "measure_green_avg_file",
                                    "make_mediapipe_detector",
                                    "LivePipeline", "rppg_livestream",
-                                   "serve_bpm"])
+                                   "serve_bpm", "analysis.main"])
 def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
     """Without a CUDA card an entry point refuses to start unless the
     caller passes ``device="cpu"`` (``--device cpu`` for an app); it never
@@ -309,13 +366,19 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
                                     "--no-display"),
             "serve_bpm": _app(serve_bpm.main, "--host", "127.0.0.1",
                               "--port", "0", "--height", "48", "--width",
-                              "128", "--max-seconds", "0")}[entry]
+                              "128", "--max-seconds", "0"),
+            "analysis.main": _app(analysis_main.main, "--video", path,
+                                  "--methods", "green_avg")}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     if entry in ("BpmServer", "LivePipeline"):
         assert call(device="cpu").device == torch.device("cpu")
-    elif entry == "rppg_livestream":     # it starts, and finds no file
-        assert call(device="cpu") == 1
+    elif entry in ("rppg_livestream", "analysis.main"):
+        try:                             # it starts, and finds no file
+            assert call(device="cpu") == 1
+        finally:
+            from vhr_tpu_torch.analysis import context
+            context.set_device(None)
     elif entry == "serve_bpm":           # it serves, for no time
         assert call(device="cpu") == 0
     else:       # with device="cpu" it starts, and finds no file

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import context
 from ...config import BAND_ANALYSIS, HRBand
 from ...device import resolve_device
 from ...dsp import spectral
@@ -27,10 +28,12 @@ def measure(video_path: str, device=None) -> np.ndarray:
     """``(N, 2)`` ``[t_sec, bpm]`` rows of the EVM measure of a video file.
 
     Decoding goes through :func:`vhr_tpu_torch.io.video.read_video`
-    (OpenCV); the frames go to ``device``: the CUDA card by default (raises
-    without one), the CPU only with ``device="cpu"``.
+    (OpenCV); the frames go to ``device``, by default the sweep's
+    (``analysis.context``), which is the CUDA card (raises without one)
+    unless the sweep asked for the CPU.
     """
-    device = resolve_device(device)
+    device = context.current_device() if device is None \
+        else resolve_device(device)
     frames, fps = vio.read_video(video_path)
     if frames.shape[0] == 0:
         return np.empty((0, 2))

@@ -3,7 +3,7 @@
 Port of ``vhr_tpu/apps/rppg_video.py``'s ``_resolve_detector`` and
 ``_resolve_detector_multi``, which the live and serving apps share.  The
 rest of the app (the three-filter analysis, the rendering, ``main``) is
-not ported yet (ROADMAP queue 1, item 8).
+not ported yet (ROADMAP queue 1, item 8b).
 """
 
 from __future__ import annotations

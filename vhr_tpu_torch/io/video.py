@@ -2,9 +2,10 @@
 
 The port's own copy of ``vhr_tpu/io/video.py``'s reader and writer
 (``read_video``, ``iter_video_chunks``, ``video_metadata``, ``write_video``,
-``HAVE_CV2``); the truth-CSV helpers stay in the JAX package.  Decode cannot
-run on the card, so this layer delivers contiguous ``(T, H, W, 3)`` uint8
-BGR frames, whole or in chunks.
+``HAVE_CV2``) and its truth-CSV helpers (``read_truth_csv``, read with the
+``csv`` module instead of pandas, and ``align_truth_to_measurement``).
+Decode cannot run on the card, so this layer delivers contiguous
+``(T, H, W, 3)`` uint8 BGR frames, whole or in chunks.
 
 :class:`ChunkReader` stands in for the JAX package's native framestore
 (``vhr_tpu/io/native``), which needs OpenCV's C++ headers: cv2 decode
@@ -16,6 +17,8 @@ card with ``non_blocking=True`` on a side stream.
 
 from __future__ import annotations
 
+import csv
+import math
 import os
 import queue
 import threading
@@ -32,7 +35,8 @@ except ImportError:  # pragma: no cover - environment without OpenCV
     HAVE_CV2 = False
 
 __all__ = ["HAVE_CV2", "read_video", "iter_video_chunks", "write_video",
-           "video_metadata", "ChunkReader"]
+           "video_metadata", "read_truth_csv", "align_truth_to_measurement",
+           "ChunkReader"]
 
 
 def _require_cv2():
@@ -127,6 +131,61 @@ def write_video(frames: np.ndarray, path: str, fps: float,
             out.write(np.ascontiguousarray(f))
     finally:
         out.release()
+
+
+# The cells pandas' ``read_csv`` reads as missing (its default ``na_values``).
+_NA = frozenset(["", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
+                 "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA",
+                 "NULL", "NaN", "None", "n/a", "nan", "null"])
+
+
+def _cell(text: str) -> float:
+    text = text.strip()
+    return math.nan if text in _NA else float(text)
+
+
+def read_truth_csv(path: str) -> np.ndarray:
+    """Load a ground-truth CSV with columns (timestamp, heart_rate).
+
+    Cleaning contract of ``video_io.read_truth_for_video``, as the JAX
+    package applies it with pandas: keep the two columns (in any order,
+    other columns ignored), drop rows with a missing cell in either,
+    de-duplicate timestamps (the first row in file order wins), sort by
+    time.  Returns ``(N, 2)`` float64.
+    """
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    header = rows[0] if rows else []
+    if not {"timestamp", "heart_rate"}.issubset(header):
+        raise ValueError(
+            "ground truth must have columns ['timestamp', 'heart_rate']")
+    cols = header.index("timestamp"), header.index("heart_rate")
+    data = np.array([[_cell(r[c]) if c < len(r) else math.nan for c in cols]
+                     for r in rows[1:]], np.float64).reshape(-1, 2)
+    data = data[~np.isnan(data).any(1)]
+    # np.unique sorts the timestamps and points at each one's first row.
+    _, first = np.unique(data[:, 0], return_index=True)
+    if first.size == 0:
+        raise ValueError("ground truth has no valid rows")
+    return data[first]
+
+
+def align_truth_to_measurement(truth: np.ndarray, measured: np.ndarray
+                               ) -> np.ndarray:
+    """Zero-order-hold alignment of truth HR to measurement timestamps.
+
+    Semantics of ``video_io.interpolate_hr_to_frames``: for each measured
+    timestamp, take the last truth sample at or before it (clamped to the
+    first sample).  Returns ``(N, 2)`` ``[t, hr]``.
+    """
+    truth = np.asarray(truth, dtype=float)
+    measured = np.asarray(measured)
+    if measured.ndim != 2 or measured.shape[1] < 1:
+        raise ValueError("measured must be 2D with timestamps in column 0")
+    t_meas = measured[:, 0].astype(float)
+    idx = np.searchsorted(truth[:, 0], t_meas, side="right") - 1
+    idx = np.clip(idx, 0, len(truth) - 1)
+    return np.column_stack([t_meas, truth[idx, 1]])
 
 
 class ChunkReader:

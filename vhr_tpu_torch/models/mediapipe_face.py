@@ -434,7 +434,8 @@ def _detect_single(params: MediaPipeFaceParams, det_apply, lm_apply,
 
 def make_mediapipe_detector(task_path: Optional[str] = None,
                             compute_dtype=None, crop_mode: str = "axis",
-                            activation_dtype="default", device=None):
+                            activation_dtype="default", device=None,
+                            fuse_stages="auto"):
     """The production-weight face detector as a pipeline detector:
     ``frames (T, H, W, 3) u8 -> (boxes (T, 4) int32, valid (T,) bool)`` —
     drops into ``pipeline.offline.extract_signals(detector=...)``.  Boxes
@@ -443,17 +444,18 @@ def make_mediapipe_detector(task_path: Optional[str] = None,
 
     The product default stores activations in bf16 (the reference's own
     runtime executes these weights as fp16 TFLite kernels); pass
-    ``activation_dtype=None`` for the full-float32 path.  The nets run
-    unfused; ``load_face_models(fuse_stages=True)`` with
-    :func:`_detect_single` runs the mesh net's residual stages on K5.
-    ``device`` defaults to the CUDA card; frames are moved there.
+    ``activation_dtype=None`` for the full-float32 path.  ``fuse_stages``
+    as in :func:`load_face_models`: by default (``"auto"``) the mesh net's
+    residual stages run on K5 on a CUDA card and op by op on the CPU;
+    ``False`` runs them op by op everywhere.  ``device`` defaults to the
+    CUDA card; frames are moved there.
     """
     if activation_dtype == "default":
         activation_dtype = torch.bfloat16
     device = resolve_device(device)
     params, det_apply, lm_apply = load_face_models(
         task_path, compute_dtype, activation_dtype=activation_dtype,
-        device=device)
+        fuse_stages=fuse_stages, device=device)
 
     def detector(frames):
         return _detect_single(params, det_apply, lm_apply,
