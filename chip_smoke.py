@@ -90,7 +90,8 @@ Phases, each of which must pass (any failure exits non-zero):
    ``tests/test_mediapipe_face.py`` drawn 4.2x its size with cv2, swaying
    3 px, a 72 BPM green pulse on its skin ellipse and 0-7 u8 noise, made on
    the card.  K5 against its plain version at the mesh net's four stage
-   shapes with the bundled weights, B=64, float32 (within 1e-5 of max|y|:
+   shapes with the bundled weights, B=64 and B=1 (the detector's slice
+   and the live step's one frame a call), float32 (within 1e-5 of max|y|:
    its 1x1 convs keep about 22 bits of each product in three TF32 passes)
    and bfloat16 (one bf16 ulp, or 1e-5 of max|y| near zero); the float32
    executor, unfused and with its stages on K5, against the numpy oracle on
@@ -101,10 +102,14 @@ Phases, each of which must pass (any failure exits non-zero):
    crop): K5 and K2 launched, >= 95% of post-acquisition frames valid, BPM
    MAE at most 0.5 against the numpy reference on its green trace, the
    landmark box's IoU with the skin ellipse's box at least 0.5 on every
-   valid frame.  The unfused product detector must agree: validity equal
-   on >= 99% of frames, landmark RMS within the JAX package's bf16 bound
-   (1.5 px on its test face, taken into the mesh net's 256-px crop with
-   the ROI the detector finds on that face here).  Times: the measure
+   valid frame.  The unfused detector must agree: validity equal on >= 99%
+   of frames, landmark RMS within the JAX package's bf16 bound (1.5 px on
+   its test face, taken into the mesh net's 256-px crop with the ROI the
+   detector finds on that face here).  The product detector
+   (``make_mediapipe_detector()``, what ``--detector mediapipe`` gives the
+   apps and the sweep) one frame a call on 8 frames, as the live step
+   calls it: K5 launched 4 times a call, and the same two bounds against
+   the unfused nets at B=1.  Times: the measure
    and detection alone, fused and unfused, the card's busy share in one
    profiled run of the fused measure; K5 per stage, its plain version and
    the same 25 ops unfused (cuDNN, op by op);
@@ -280,6 +285,7 @@ EXEC_TOL = {"face_detector.tflite": 2e-5,            # the JAX package's
 # the ROI side the detector finds on that face, whatever the face's size.
 MP_RMS_PX = 1.5
 MP_IOU_MIN = 0.5
+MP_SINGLE_N = 8        # frames the product detector sees one a call
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, float32 operations/s on the CUDA cores, and dense TF32
 # operations/s on the tensor cores.
@@ -1717,7 +1723,7 @@ def run_mediapipe(dev, cfg) -> dict:
     bf16 = torch.bfloat16
     params, det_apply, lm_fused = mpf.load_face_models(
         activation_dtype=bf16, fuse_stages=True)
-    _, _, lm_plain = mpf.load_face_models(activation_dtype=bf16)
+    params_u, det_u, lm_plain = mpf.load_face_models(activation_dtype=bf16)
     torch.cuda.synchronize()
     log(f"[mediapipe] clip {tuple(frames.shape)} and both nets on the card "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1726,8 +1732,10 @@ def run_mediapipe(dev, cfg) -> dict:
         return mpf._detect_single(params, det_apply, lm_fused, x)
 
     # K5 against its plain version at the four stage shapes, bundled
-    # weights, B = the detector's slice (K5's batch on the main path),
-    # random N(0, 1) stage inputs.
+    # weights, random N(0, 1) stage inputs, at each batch the product
+    # detector gives it: B = the detector's slice (an offline measure, a
+    # sweep, the skin pool's 64 slots) and B = 1 (the live step's one frame
+    # a call).
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     stages = [(st, mb.StageWeights(*(params.lm[f"_fs{start}_{i}"]
                                      for i in range(9))))
@@ -1735,15 +1743,17 @@ def run_mediapipe(dev, cfg) -> dict:
     k5_err, k5_inputs = 0.0, []
     for st, wts in stages:
         C, Hs, Ws = st["C"], st["H"], st["W"]
-        x = torch.randn((mpf._SLICE, C, Hs * Ws), generator=gen, device=dev)
-        k5_inputs.append(x)
-        for dtype in (torch.float32, bf16):
-            xi = x.to(dtype)
-            err, scale = check_k5(xi, wts, Ws)
-            k5_err = max(k5_err, err)
-            log(f"[check] K5 == plain at {Hs}x{Ws} C={C} Cm={st['Cm']} x "
-                f"{mpf._SLICE} {str(dtype)[6:]}: max |err| "
-                f"{err:.3g} (max|y| {scale:.3g})")
+        for B in (mpf._SLICE, 1):
+            x = torch.randn((B, C, Hs * Ws), generator=gen, device=dev)
+            if B == mpf._SLICE:
+                k5_inputs.append(x)
+            for dtype in (torch.float32, bf16):
+                xi = x.to(dtype)
+                err, scale = check_k5(xi, wts, Ws)
+                k5_err = max(k5_err, err)
+                log(f"[check] K5 == plain at {Hs}x{Ws} C={C} Cm={st['Cm']} "
+                    f"x {B} {str(dtype)[6:]}: max |err| {err:.3g} (max|y| "
+                    f"{scale:.3g})")
 
     # The executors (float32, unfused and fused) against the numpy oracle
     # on one frame of each net: the clip's letterboxed frame and face crop.
@@ -1816,10 +1826,11 @@ def run_mediapipe(dev, cfg) -> dict:
                              f"of {expect}, MAE {mae_ref}, IoU min "
                              f"{float(iou.min())}")
 
-    # Fused against unfused: the product detector with its nets op by op
-    # (fuse_stages=False), and the landmarks of both mesh nets on the same
-    # detections.
-    unfused = mpf.make_mediapipe_detector(fuse_stages=False)
+    # Fused against unfused: the detector with its nets op by op, and the
+    # landmarks of both mesh nets on the same detections.
+    def unfused(x):
+        return mpf._detect_single(params_u, det_u, lm_plain, x)
+
     b_f, v_f = det(frames)
     b_u, v_u = unfused(frames)
     agree = float((v_f == v_u).double().mean())
@@ -1846,6 +1857,39 @@ def run_mediapipe(dev, cfg) -> dict:
     if agree < 0.99 or rms_crop > rms_tol:
         raise AssertionError(f"fused vs unfused: agree {agree}, RMS "
                              f"{rms_crop} crop px")
+
+    # The product detector (make_mediapipe_detector, which --detector
+    # mediapipe resolves to) as the live step calls it, one frame a call:
+    # K5 at B=1 in every call, validity against the unfused detector's, and
+    # both mesh nets' landmarks at B=1 on the same detections, under the
+    # clip's bound.
+    product = mpf.make_mediapipe_detector()
+    picks = list(range(0, T, max(1, T // MP_SINGLE_N)))[:MP_SINGLE_N]
+    before = mb.LAUNCHES
+    v_one = torch.cat([product(frames[i:i + 1])[1] for i in picks])
+    torch.cuda.synchronize()
+    k5_one = mb.LAUNCHES - before
+    v_ref = torch.cat([unfused(frames[i:i + 1])[1] for i in picks])
+    agree_1 = float((v_one == v_ref).double().mean())
+    d1 = []
+    with torch.no_grad():
+        for i in picks:
+            r, _, _ = mpf.detect_faces_mp(params, det_apply,
+                                          frames[i:i + 1])
+            f_, _ = mpf.face_landmarks(params, lm_fused, frames[i:i + 1], r)
+            u_, _ = mpf.face_landmarks(params, lm_plain, frames[i:i + 1], r)
+            d1.append((f_ - u_) * 256.0 / r.side[..., None, None])
+    rms_1 = float((torch.cat(d1)[v_one & v_ref] ** 2).mean().sqrt())
+    log(f"[mediapipe] product detector one frame a call (the live step's "
+        f"B=1), {len(picks)} frames: K5 launches {k5_one} ({len(stages)} a "
+        f"call expected); validity equal to the unfused detector's on "
+        f"{agree_1:.4f} of them; landmarks fused vs unfused at B=1 RMS "
+        f"{rms_1:.4f} px of the 256-px crop (bound {rms_tol:.3f})")
+    if k5_one != len(stages) * len(picks) or agree_1 < 0.99 \
+            or not rms_1 <= rms_tol:
+        raise AssertionError(f"product detector at B=1: K5 launches "
+                             f"{k5_one}, validity equal on {agree_1}, "
+                             f"landmark RMS {rms_1} crop px")
 
     # Times (CUDA events, median of 3 after a warm-up).
     m_ms = {"fused": cuda_ms(lambda: offline.measure_green_avg(

@@ -28,6 +28,7 @@ from vhr_tpu.pipeline import evm as jevm
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 import vhr_tpu_torch.io.video
+from vhr_tpu_torch.analysis import context
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
 from vhr_tpu_torch.config import BAND_ANALYSIS, EVMConfig, HRBand
 from vhr_tpu_torch.dsp import spectral
@@ -428,7 +429,11 @@ def test_measure_matches_jax(monkeypatch):
         monkeypatch.setattr(video, "read_video",
                             lambda path: (clip.frames, clip.fps))
     want = jax_measure.measure("clip.mp4")
-    got = measure_evm.measure("clip.mp4", device="cpu")
+    context.set_device("cpu")
+    try:
+        got = measure_evm.measure("clip.mp4")
+    finally:
+        context.set_device(None)
     assert got.shape == want.shape and got.shape[0] > 200
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-3)

@@ -25,7 +25,7 @@ from vhr_tpu.validation import cpu_reference_green_avg as jax_reference
 
 import vhr_tpu_torch
 from vhr_tpu_torch import config, interop, serving
-from vhr_tpu_torch.analysis import main as analysis_main
+from vhr_tpu_torch.analysis import context, main as analysis_main
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
 from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
 from vhr_tpu_torch.dsp import design
@@ -341,6 +341,20 @@ def _app(main, *argv):
     return call
 
 
+def _plugin(measure, path):
+    """A measurement plugin's ``measure(path)`` as an entry point taking
+    ``device=``, which travels through ``analysis.context``."""
+    def call(device=None):
+        if device is None:
+            return measure(path)
+        context.set_device(device)
+        try:
+            return measure(path)
+        finally:
+            context.set_device(None)
+    return call
+
+
 @pytest.mark.parametrize("entry", ["BpmServer", "evm.measure",
                                    "extract_signals_streaming",
                                    "measure_green_avg_file",
@@ -354,7 +368,7 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = str(tmp_path / "missing.avi")
     call = {"BpmServer": lambda **kw: serving.BpmServer(n_slots=2, **kw),
-            "evm.measure": lambda **kw: measure_evm.measure(path, **kw),
+            "evm.measure": _plugin(measure_evm.measure, path),
             "extract_signals_streaming":
                 lambda **kw: offline.extract_signals_streaming(path, **kw),
             "measure_green_avg_file":
@@ -377,7 +391,6 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
         try:                             # it starts, and finds no file
             assert call(device="cpu") == 1
         finally:
-            from vhr_tpu_torch.analysis import context
             context.set_device(None)
     elif entry == "serve_bpm":           # it serves, for no time
         assert call(device="cpu") == 0

@@ -11,11 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import context
+from . import read_frames
 from ...config import BAND_ANALYSIS, HRBand
-from ...device import resolve_device
 from ...dsp import spectral
-from ...io import video as vio
 from ...ops import windows as vwin
 from ...pipeline import evm, offline
 
@@ -24,20 +22,12 @@ ACQUISITION_TIME = 10.0
 LEVELS = 3
 
 
-def measure(video_path: str, device=None) -> np.ndarray:
-    """``(N, 2)`` ``[t_sec, bpm]`` rows of the EVM measure of a video file.
-
-    Decoding goes through :func:`vhr_tpu_torch.io.video.read_video`
-    (OpenCV); the frames go to ``device``, by default the sweep's
-    (``analysis.context``), which is the CUDA card (raises without one)
-    unless the sweep asked for the CPU.
-    """
-    device = context.current_device() if device is None \
-        else resolve_device(device)
-    frames, fps = vio.read_video(video_path)
-    if frames.shape[0] == 0:
-        return np.empty((0, 2))
-    return _measure_frames(torch.as_tensor(frames, device=device), fps)
+def measure(video_path: str) -> np.ndarray:
+    """``(N, 2)`` ``[t_sec, bpm]`` rows of the EVM measure of a video file,
+    on the sweep's device (``analysis.context``): the CUDA card (raises
+    without one) unless the sweep asked for the CPU."""
+    frames, fps = read_frames(video_path)
+    return _measure_frames(frames, fps)
 
 
 def _measure_frames(frames: torch.Tensor, fps: float) -> np.ndarray:

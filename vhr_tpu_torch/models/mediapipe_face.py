@@ -434,8 +434,7 @@ def _detect_single(params: MediaPipeFaceParams, det_apply, lm_apply,
 
 def make_mediapipe_detector(task_path: Optional[str] = None,
                             compute_dtype=None, crop_mode: str = "axis",
-                            activation_dtype="default", device=None,
-                            fuse_stages="auto"):
+                            activation_dtype="default", device=None):
     """The production-weight face detector as a pipeline detector:
     ``frames (T, H, W, 3) u8 -> (boxes (T, 4) int32, valid (T,) bool)`` —
     drops into ``pipeline.offline.extract_signals(detector=...)``.  Boxes
@@ -444,18 +443,17 @@ def make_mediapipe_detector(task_path: Optional[str] = None,
 
     The product default stores activations in bf16 (the reference's own
     runtime executes these weights as fp16 TFLite kernels); pass
-    ``activation_dtype=None`` for the full-float32 path.  ``fuse_stages``
-    as in :func:`load_face_models`: by default (``"auto"``) the mesh net's
-    residual stages run on K5 on a CUDA card and op by op on the CPU;
-    ``False`` runs them op by op everywhere.  ``device`` defaults to the
-    CUDA card; frames are moved there.
+    ``activation_dtype=None`` for the full-float32 path.  The mesh net's
+    residual stages run on K5 on a CUDA card and op by op on the CPU
+    (``load_face_models(fuse_stages="auto")``).  ``device`` defaults to
+    the CUDA card; frames are moved there.
     """
     if activation_dtype == "default":
         activation_dtype = torch.bfloat16
     device = resolve_device(device)
     params, det_apply, lm_apply = load_face_models(
         task_path, compute_dtype, activation_dtype=activation_dtype,
-        fuse_stages=fuse_stages, device=device)
+        fuse_stages="auto", device=device)
 
     def detector(frames):
         return _detect_single(params, det_apply, lm_apply,
