@@ -174,7 +174,36 @@ Phases, each of which must pass (any failure exits non-zero):
    decoded frames on the card; the 720p resize of a 32-frame chunk on the
    card is within 1 u8 of the CPU's.  Logs ``summary.json``'s stage times
    and each measure's frames/s over its levels;
-14. launch K4 twice more on the fused pool's last frames and state, which
+14. the apps and the multi-face path, each entry point on the card:
+   ``apps.rppg_video.main`` with ``--live-panels`` on a 1080p MJPG cut of
+   the flagship clip (its first 360 frames, 12 s: the 10 s window fills)
+   must exit 0, write ``annotated.mp4`` with 360 frames and print the
+   three filters' last valid BPM within 8 BPM of the truth; ``analyze``'s
+   green trace and validity equal ``offline.extract_signals`` on the same
+   decoded frames, and ``live_panel_data``'s panel BPM medians are within
+   8 BPM; ``apps.bpp.main(["--json"])`` on that file counts its frames and
+   gives entropy, noise variance and NSR within ``rtol=1e-5`` of numpy on
+   cv2's ``COLOR_BGR2GRAY`` frames; the video app with ``--detector
+   mediapipe`` on the MediaPipe phase's drawn face cut to 360 frames (K5
+   launched, the same 8 BPM gate); ``--faces 2`` on a two-face 720p clip
+   made on the card from a seed (60 and 96 BPM, 480 frames): each face
+   within 8 BPM of its rate and the boxes in x-order.
+   ``LivePipeline(k_faces=2)`` on 600 frames of those subjects equals the
+   sequential ``make_step_multi`` bit for bit, each subject's last BPM
+   valid within 8 BPM, and 100 submits under sync debugging flag no
+   synchronizing operation; ``BpmServer(k_faces=2, use_fused=False)`` with
+   4 slots (two of them mirrored: face0 the 96 BPM subject) for 700 ticks:
+   every subject valid within 8 BPM at the end, slot 0 equal to
+   ``step_multi`` on its own frames on every tick.
+   ``apps.evm_magnify.main`` on a 1080p 600-frame MJPG clip with a 55 BPM
+   pulse (one 20 s chunk): K6 and K7 launched once each, the mp4v output
+   decodes to the input's shape, the cheek's green pulse amplified more
+   than 5x.  ``validation.main`` in a temporary directory exits 0 and
+   writes ``VALIDATION_TORCH.md`` there, and nothing else; ``entry()``
+   launches K1 once and its forward equals ``measure_green_avg(
+   use_pallas="fused")`` on the same frames, and K1 equals its plain
+   version on that clip.  Each check's time is logged;
+15. launch K4 twice more on the fused pool's last frames and state, which
    must give the same bits both times (each launch leaves its accumulators
    clean), and time each pool tick (device time, and wall time with the
    host-to-card upload and the fetch) and each kernel against its plain
@@ -191,17 +220,18 @@ The launch counters are set to 0 just before each of the main paths (the
 offline measure, each call of the other measures, each stream and the
 file measure, ``magnify``, the EVM measure, the MediaPipe measure, each
 mode of the live pipeline, the fused pool, the skin pool, the adaptive
-pool, the I420 pool pair, the servers, the live app, each analysis sweep)
-and read just after; K2's and K3's vectorised instance must have taken
+pool, the I420 pool pair, the servers, the live app, each analysis
+sweep, each path of phase 14) and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
 and the skin pool.  The record's launches: K1's in the offline run, the
 other measures' fused calls, the 4-decoder stream and the fused I420
 stream, K2's in the offline run, the other measures' ``"roi"`` calls, the
 MediaPipe measure and the skin pool, K3's in the detect stream, K4's in the
 fused and the adaptive pool, the live pipeline's four modes and the I420
-pool pair, K5's in the MediaPipe measure and the MediaPipe sweep, K6's in
-``magnify``, the EVM measure and the degradation sweep, K7's in
-``magnify``.  K2's time is at 1080p x 960, and its time
+pool pair, K5's in the MediaPipe measure, the MediaPipe sweep and the
+video app's ``--detector mediapipe``, K6's in ``magnify``, the EVM
+measure, the degradation sweep and ``evm_magnify``, K7's in ``magnify``
+and ``evm_magnify``; K1's also ``entry()``'s.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
 logged with their bounds.
 The line before the last is the kernels' JSON record: per kernel its time
@@ -272,6 +302,13 @@ LIVE_FRAMES, LIVE_WARM, LIVE_PROFILED = 760, 40, 100
 I420_TICKS = 100
 # The served pool's client in client mode: 200 frames of the subject.
 APP_CLIENT_FRAMES = 200
+# The apps and multi-face phase: the video app on APP_T frames (12 s: its
+# 10 s window fills) at 1080p; two faces at 720p with their own rates, the
+# video app on the first DUO_APP_T frames, LivePipeline on DUO_LIVE_T, a
+# pool of DUO_SLOTS slots for DUO_POOL_T ticks.
+APP_T = 360
+DUO_BPM = (60.0, 96.0)
+DUO_APP_T, DUO_LIVE_T, DUO_POOL_T, DUO_SLOTS = 480, 600, 700, 4
 # The MediaPipe phase: tests/test_mediapipe_face.py's schematic face drawn
 # 4.2x its size at 1080p (BlazeFace scores it ~0.87 there), swaying 3 px.
 MP_SCALE, MP_SWAY = 4.2, 3
@@ -1093,6 +1130,58 @@ def subject_frames(subj, n: int):
         for ks in (list(range(s, min(s + 64, n))) for s in range(0, n, 64))])
 
 
+def profiled_submits(pipe, frames, tag: str):
+    """LIVE_WARM submits of ``frames`` to ``pipe``, then LIVE_PROFILED more
+    under ``torch.profiler`` with ``torch.cuda.set_sync_debug_mode("warn")``:
+    no synchronizing operation may be flagged, and the only host waits for
+    the card inside the submits are the fetches' event waits.  Returns the
+    waits seen inside the window and the kernel launches there."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for f in frames[:LIVE_WARM]:
+        pipe.submit(f)
+    torch.cuda.synchronize()
+    window = frames[LIVE_WARM:LIVE_WARM + LIVE_PROFILED]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("submits"):
+                    for f in window:
+                        pipe.submit(f)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pipe.flush()
+    syncs = [str(w.message) for w in caught
+             if "synchronizing" in str(w.message).lower()]
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "submits")
+    counts, outside, n_kernels = {}, {}, 0
+    for e in events:
+        inside = span.start <= e.time_range.start <= span.end
+        if "Synchronize" in e.name or e.name == "cudaMemcpy":
+            side = counts if inside else outside
+            side[e.name] = side.get(e.name, 0) + 1
+        n_kernels += inside and e.name in ("cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaLaunchKernelExC")
+    log(f"{tag} profiled {LIVE_PROFILED} submits: host waits for the card "
+        f"inside the submits {counts} ({LIVE_PROFILED} fetches; outside "
+        f"them {outside}), {n_kernels} kernel launches; synchronizing "
+        f"operations flagged by torch.cuda.set_sync_debug_mode: "
+        f"{len(syncs)}")
+    if syncs or set(counts) - {"cudaEventSynchronize"} \
+            or counts.get("cudaEventSynchronize", 0) > LIVE_PROFILED:
+        raise AssertionError(f"{tag} a submit waited for the card outside "
+                             f"its fetch: {counts}, {syncs[:3]}")
+    return counts, n_kernels
+
+
 def run_live(dev) -> dict:
     """``LivePipeline`` on one 720p subject in four modes against the
     sequential step (shifted, equal bits), K4 launched in each, the last
@@ -1102,11 +1191,9 @@ def run_live(dev) -> dict:
     carries and phases of the sequential runs and of the live app's
     ``--fused`` configuration, and K4's time there."""
     import dataclasses
-    import warnings
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
     from vhr_tpu_torch.ops import fused_cuda
     from vhr_tpu_torch.pipeline import live
 
@@ -1230,45 +1317,8 @@ def run_live(dev) -> dict:
 
     # One profiled window of submits: the host's waits for the card inside
     # it (the profiler's own synchronize on exit falls outside).
-    pipe = live.LivePipeline(cfg)
-    for f in bgr[:LIVE_WARM]:
-        pipe.submit(f)
-    torch.cuda.synchronize()
-    window = bgr[LIVE_WARM:LIVE_WARM + LIVE_PROFILED]
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                with record_function("submits"):
-                    for f in window:
-                        pipe.submit(f)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    pipe.flush()
-    syncs = [str(w.message) for w in caught
-             if "synchronizing" in str(w.message).lower()]
-    events = prof.events()
-    span = next(e.time_range for e in events if e.name == "submits")
-    counts, outside, n_kernels = {}, {}, 0
-    for e in events:
-        inside = span.start <= e.time_range.start <= span.end
-        if "Synchronize" in e.name or e.name == "cudaMemcpy":
-            side = counts if inside else outside
-            side[e.name] = side.get(e.name, 0) + 1
-        n_kernels += inside and e.name in ("cudaLaunchKernel",
-                                           "cuLaunchKernel",
-                                           "cudaLaunchKernelExC")
-    log(f"[live] profiled {LIVE_PROFILED} submits: host waits for the card "
-        f"inside the submits {counts} ({LIVE_PROFILED} fetches; outside "
-        f"them {outside}), {n_kernels} kernel launches; synchronizing "
-        f"operations flagged by torch.cuda.set_sync_debug_mode: "
-        f"{len(syncs)}")
-    if syncs or set(counts) - {"cudaEventSynchronize"} \
-            or counts.get("cudaEventSynchronize", 0) > LIVE_PROFILED:
-        raise AssertionError(f"a submit waited for the card outside its "
-                             f"fetch: {counts}, {syncs[:3]}")
+    counts, n_kernels = profiled_submits(live.LivePipeline(cfg), bgr,
+                                         "[live]")
     out["profile"] = dict(counts=counts, kernels=n_kernels)
     out["bgr_frames"], out["truth"] = bgr, truth
     out["k4_err"] = k4_err
@@ -2441,6 +2491,353 @@ def run_analysis(dev, frames, card: str) -> dict:
     return out
 
 
+def make_duo(dev, t: int, h: int, w: int, bpms=DUO_BPM, seed: int = SEED,
+             chunk: int = 64):
+    """``(t, h, w, 3)`` u8 BGR clip of two side-by-side faces made on
+    ``dev`` from a seed (``utils.synth.synthesize_multi``'s geometry: skin
+    ellipses at x 0.25 and 0.72 of the width), each with its own green
+    pulse rate ``bpms``, a small sway and 0-7 u8 of sensor noise."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.empty((t, h, w, 3), dtype=torch.uint8, device=dev)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    bg = torch.tensor([60.0, 60.0, 60.0], device=dev)
+    skin = torch.tensor([105.0, 135.0, 180.0], device=dev)
+    for s in range(0, t, chunk):
+        n = min(chunk, t - s)
+        ts = torch.arange(s, s + n, device=dev, dtype=torch.float32) / FPS
+        img = bg.expand(n, h, w, 3).clone()
+        for (fx, fy), bpm in zip(((0.25, 0.45), (0.72, 0.5)), bpms):
+            cx = fx * w + 3.0 * torch.sin(2 * math.pi * 0.1 * ts + fx)
+            face = (((xx - cx[:, None, None]) / (0.12 * w)) ** 2
+                    + ((yy - fy * h) / (0.18 * h)) ** 2) <= 1.0
+            color = skin.expand(n, 3).clone()
+            color[:, 1] += 2.0 * torch.sin(2 * math.pi * bpm / 60.0 * ts)
+            img = torch.where(face[..., None], color[:, None, None, :], img)
+        img += torch.randint(0, 8, (n, h, w, 3), generator=gen,
+                             device=dev).to(torch.float32)
+        frames[s:s + n] = img.clamp(0, 255).to(torch.uint8)
+    return frames
+
+
+def run_app_slice(dev, frames, card: str) -> dict:
+    """The apps and the multi-face path on the card (phase 15): the video
+    app single-face at 1080p (skin, then ``--detector mediapipe``) and with
+    ``--faces 2`` at 720p; ``LivePipeline(k_faces=2)`` against the
+    sequential ``make_step_multi`` with sync debugging; the K=2 pool
+    against ``step_multi``; ``evm_magnify`` at 1080p; ``bpp --json`` against
+    numpy; ``validation.main`` in a temporary directory; ``entry()``.
+    Counters from 0 before each path, read after.  Returns the launches
+    and each check's time."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+    import torch
+    from vhr_tpu_torch import entry as tentry
+    from vhr_tpu_torch import serving, validation
+    from vhr_tpu_torch.apps import bpp, evm_magnify, rppg_video
+    from vhr_tpu_torch.config import PipelineConfig
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda, fused_cuda
+    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+    from vhr_tpu_torch.pipeline import live, offline
+
+    out = {"launches": {}, "s": {}}
+
+    def call(fn, argv):
+        """``fn(argv)`` with its standard output captured: (exit, lines,
+        seconds)."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+    def filter_bpms(lines):
+        """The video app's ``BPM Butterworth: a | Cheby2: b | FIR: c``."""
+        line = next((ln for ln in lines if ln.startswith("BPM ")), "")
+        return [float(p.split(": ")[1]) for p in line.split(" | ")] \
+            if line else []
+
+    def captured(name, argv):
+        """``rppg_video.main(argv)`` with the results of its
+        ``rppg_video.<name>`` call kept: (exit, lines, seconds, results)."""
+        kept, inner = [], getattr(rppg_video, name)
+
+        def keep(*a, **kw):
+            kept.append(inner(*a, **kw))
+            return kept[-1]
+
+        setattr(rppg_video, name, keep)
+        try:
+            rc, lines, wall = call(rppg_video.main, argv)
+        finally:
+            setattr(rppg_video, name, inner)
+        return rc, lines, wall, kept[0] if kept else None
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    try:
+        # The video app, single face, on a 1080p MJPG cut of the flagship
+        # clip (12 s: the 10 s window fills).
+        t0 = time.perf_counter()
+        cut = frames[:APP_T].cpu().numpy()
+        flag = os.path.join(tmp, "flagship.avi")
+        vio.write_video(cut, flag, FPS, fourcc="MJPG")
+        log(f"[app] flagship cut {cut.shape} written as MJPG in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rc, lines, wall, res = captured("analyze", [
+            flag, "--out-dir", os.path.join(tmp, "video"), "--live-panels"])
+        bpms = filter_bpms(lines)
+        n_out = vio.video_metadata(
+            os.path.join(tmp, "video", "annotated.mp4"))[3]
+        log(f"[app] rppg_video main --live-panels: exit {rc} in {wall:.2f} s "
+            f"({APP_T / wall:.1f} frames/s with decode, analysis, render and "
+            f"encode); annotated.mp4 {n_out} frames; last valid BPM "
+            f"Butterworth, Cheby2, FIR {bpms}; {lines[-1] if lines else ''}")
+        if rc != 0 or n_out != APP_T or len(bpms) != 3 \
+                or any(abs(b - TRUTH_BPM) > BPM_TOL for b in bpms):
+            raise AssertionError(f"rppg_video: exit {rc}, {n_out} frames, "
+                                 f"BPM {bpms}")
+        out["s"]["rppg_video"] = wall
+        decoded = res["frames"]
+        trace = offline.extract_signals(torch.as_tensor(decoded, device=dev))
+        same = np.array_equal(res["green"], trace.bgr[:, 1].cpu().numpy()) \
+            and np.array_equal(res["valid"], trace.valid.cpu().numpy())
+        t0 = time.perf_counter()
+        panels = rppg_video.live_panel_data(res)
+        t_pan = time.perf_counter() - t0
+        med = [float(np.median(b)) for b in panels[4:]]
+        log(f"[app] its analyze: green and valid == offline.extract_signals "
+            f"on the decoded frames: {same}; live_panel_data {t_pan:.3f} s "
+            f"for {panels[2].shape[0]} windows, panel BPM medians "
+            f"Butterworth {med[0]:.3f}, Chebyshev II {med[1]:.3f}")
+        if not same or any(abs(m - TRUTH_BPM) > BPM_TOL for m in med):
+            raise AssertionError(f"analyze: trace equal {same}, panel "
+                                 f"medians {med}")
+        del trace, res
+
+        # bpp --json on the same MJPG against numpy on cv2's gray frames.
+        rc, lines, wall = call(bpp.main, [flag, "--json"])
+        stats = json.loads(lines[-1])
+        ent, var, nsr = [], [], []
+        for f in decoded:                   # cv2's decode of the file
+            g = cv2.cvtColor(f, cv2.COLOR_BGR2GRAY).astype(np.float64)
+            p = np.bincount(g.astype(np.int64).ravel(),
+                            minlength=256) / g.size
+            ent.append(-np.sum(p * np.log2(p + 1e-6)))
+            var.append(g.var())
+            nsr.append(g.std() / g.mean() if g.mean() else 0.0)
+        del decoded
+        ref = dict(avg_entropy=np.mean(ent), avg_noise_variance=np.mean(var),
+                   avg_nsr=np.mean(nsr))
+        rel = {k: abs(stats[k] - v) / abs(v) for k, v in ref.items()}
+        log(f"[app] bpp --json: exit {rc} in {wall:.2f} s; {stats}; "
+            f"relative error against numpy {rel}")
+        if rc != 0 or stats["frames"] != APP_T or len(ent) != APP_T \
+                or max(rel.values()) > 1e-5:
+            raise AssertionError(f"bpp: exit {rc}, {stats}, {rel}")
+        out["s"]["bpp"] = wall
+
+        # The video app under --detector mediapipe (K5) on the MediaPipe
+        # phase's drawn face, cut to APP_T frames.
+        face, _ = make_face_clip(dev, APP_T, H, W, seed=SEED + 9)
+        fpath = os.path.join(tmp, "face.avi")
+        vio.write_video(face.cpu().numpy(), fpath, FPS, fourcc="MJPG")
+        del face
+        mb.LAUNCHES = 0
+        rc, lines, wall = call(rppg_video.main, [
+            fpath, "--out-dir", os.path.join(tmp, "face"), "--detector",
+            "mediapipe"])
+        torch.cuda.synchronize()
+        out["launches"]["K5"] = mb.LAUNCHES
+        bpms = filter_bpms(lines)
+        log(f"[app] rppg_video --detector mediapipe: exit {rc} in "
+            f"{wall:.2f} s; K5 launches {mb.LAUNCHES}; last valid BPM "
+            f"{bpms}")
+        if rc != 0 or mb.LAUNCHES < 1 or len(bpms) != 3 \
+                or any(abs(b - TRUTH_BPM) > BPM_TOL for b in bpms):
+            raise AssertionError(f"rppg_video mediapipe: exit {rc}, K5 "
+                                 f"{mb.LAUNCHES}, BPM {bpms}")
+        out["s"]["rppg_video mediapipe"] = wall
+
+        # Two faces at 720p: the video app with --faces 2, LivePipeline and
+        # the pool with k_faces=2.
+        t0 = time.perf_counter()
+        duo = make_duo(dev, DUO_POOL_T, PH, PW)
+        torch.cuda.synchronize()
+        dpath = os.path.join(tmp, "duo.avi")
+        vio.write_video(duo[:DUO_APP_T].cpu().numpy(), dpath, FPS,
+                        fourcc="MJPG")
+        log(f"[app] two-face clip {tuple(duo.shape)} made on the card, its "
+            f"first {DUO_APP_T} frames written as MJPG in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rc, lines, wall, res = captured("analyze_multi", [
+            dpath, "--out-dir", os.path.join(tmp, "duo"), "--faces", "2"])
+        faces = dict(ln.split(" BPM: ") for ln in lines
+                     if ln.startswith("face"))
+        b, v = res["boxes"], res["valid"]
+        ordered = bool((b[v.all(1)][:, 0, 2] < b[v.all(1)][:, 1, 0]).all())
+        log(f"[app] rppg_video --faces 2 on {DUO_APP_T} frames of "
+            f"{PW}x{PH}: exit {rc} in {wall:.2f} s; {faces}; both faces "
+            f"valid on {int(v.all(1).sum())} frames, boxes in x-order "
+            f"{ordered}")
+        if rc != 0 or set(faces) != {"face0", "face1"} or not ordered \
+                or any(abs(float(faces[f"face{k}"]) - DUO_BPM[k]) > BPM_TOL
+                       for k in range(2)):
+            raise AssertionError(f"rppg_video --faces 2: exit {rc}, "
+                                 f"{faces}, x-order {ordered}")
+        out["s"]["rppg_video --faces 2"] = wall
+        del res
+
+        # LivePipeline(k_faces=2) against the sequential step, bit for bit.
+        cfg = live.LiveConfig(fps=FPS)
+        host = duo[:DUO_LIVE_T].cpu().numpy()
+        t0 = time.perf_counter()
+        pipe = live.LivePipeline(cfg, k_faces=2)
+        got = []
+        for f in host:
+            o = pipe.submit(f)
+            if o is not None:
+                got.append(o)
+        got.append(pipe.flush())
+        wall = time.perf_counter() - t0
+        step = live.make_step_multi(cfg, 2)
+        st = live.init_state_multi(cfg, 2, dev)
+        same = True
+        for f, o in zip(duo[:DUO_LIVE_T], got):
+            st, r = step(st, f)
+            r = live.unpack_output(live.pack_output(r).cpu().numpy())
+            same &= all(np.array_equal(getattr(o, k), getattr(r, k))
+                        for k in o._fields)
+        last = got[-1]
+        log(f"[app] LivePipeline(k_faces=2): {len(got)} outputs in "
+            f"{wall:.2f} s ({DUO_LIVE_T / wall:.1f} frames/s); == sequential "
+            f"make_step_multi: {same}; last BPM {last.bpm.tolist()} valid "
+            f"{last.bpm_valid.tolist()}")
+        if len(got) != DUO_LIVE_T or not same or not last.bpm_valid.all() \
+                or any(abs(float(last.bpm[k]) - DUO_BPM[k]) > BPM_TOL
+                       for k in range(2)):
+            raise AssertionError(f"LivePipeline(k_faces=2): equal {same}, "
+                                 f"last {last}")
+        profiled_submits(live.LivePipeline(cfg, k_faces=2), host,
+                         "[app] LivePipeline(k_faces=2)")
+        out["s"]["LivePipeline k_faces=2"] = wall
+        del host
+
+        # The K=2 pool, 4 slots; slots 2 and 3 see the clip mirrored, so
+        # their face0 is the 96 BPM subject.
+        pool = serving.BpmServer(cfg, n_slots=DUO_SLOTS, k_faces=2)
+        for _ in range(DUO_SLOTS):
+            pool.attach()
+        mirrored = duo.flip(2)
+        st = live.init_state_multi(cfg, 2, dev)
+        same = True
+        t0 = time.perf_counter()
+        for i in range(DUO_POOL_T):
+            outs = pool.tick({s: (duo[i] if s < 2 else mirrored[i])
+                              for s in range(DUO_SLOTS)})
+            st, r = live.step_multi(st, duo[i], cfg, 2)
+            r = live.unpack_output(live.pack_output(r).cpu().numpy())
+            same &= all(np.array_equal(getattr(outs[0], k), getattr(r, k))
+                        for k in r._fields)
+        wall = time.perf_counter() - t0
+        ends = {s: (outs[s].bpm.tolist(), outs[s].bpm_valid.tolist())
+                for s in range(DUO_SLOTS)}
+        want = {s: DUO_BPM if s < 2 else DUO_BPM[::-1]
+                for s in range(DUO_SLOTS)}
+        log(f"[app] pool k_faces=2, {DUO_SLOTS} slots x {DUO_POOL_T} ticks "
+            f"of {PW}x{PH}: {wall:.2f} s with step_multi beside it; slot 0 "
+            f"== step_multi {same}; last BPM and validity {ends}")
+        if not same or any(not all(ends[s][1]) or any(
+                abs(ends[s][0][k] - want[s][k]) > BPM_TOL for k in range(2))
+                for s in range(DUO_SLOTS)):
+            raise AssertionError(f"pool k_faces=2: equal {same}, {ends}")
+        out["s"]["pool k_faces=2"] = wall
+        del duo, mirrored, pool
+
+        # evm_magnify on a 1080p clip with a 55 BPM pulse: one 20 s chunk,
+        # K6 and K7 once each.
+        clip, _ = make_clip(dev, EVM_T, H, W, seed=SEED + 6, bpm=EVM_BPM)
+        src, dst = os.path.join(tmp, "evm.avi"), os.path.join(tmp, "mag.mp4")
+        vio.write_video(clip.cpu().numpy(), src, FPS, fourcc="MJPG")
+        evm_cuda.LAUNCHES = evm_recon_cuda.LAUNCHES = 0
+        rc, lines, wall = call(evm_magnify.main, [src, dst])
+        torch.cuda.synchronize()
+        out["launches"]["K6"] = evm_cuda.LAUNCHES
+        out["launches"]["K7"] = evm_recon_cuda.LAUNCHES
+        mag, _ = vio.read_video(dst)
+        gain = cheek_pulse(torch.as_tensor(mag, device=dev), EVM_BPM) \
+            / cheek_pulse(clip, EVM_BPM)
+        log(f"[app] evm_magnify: exit {rc} in {wall:.2f} s ({EVM_T / wall:.1f}"
+            f" frames/s with decode and encode); K6 {evm_cuda.LAUNCHES}, K7 "
+            f"{evm_recon_cuda.LAUNCHES} launches; output {mag.shape}; cheek "
+            f"pulse gain {gain:.2f}x")
+        if rc != 0 or evm_cuda.LAUNCHES != 1 or evm_recon_cuda.LAUNCHES != 1 \
+                or mag.shape != tuple(clip.shape) or not gain > 5.0:
+            raise AssertionError(f"evm_magnify: exit {rc}, K6 "
+                                 f"{evm_cuda.LAUNCHES}, K7 "
+                                 f"{evm_recon_cuda.LAUNCHES}, {mag.shape}, "
+                                 f"gain {gain}")
+        out["s"]["evm_magnify"] = wall
+        del clip, mag
+
+        # validation.main in a directory of its own.
+        vdir = os.path.join(tmp, "validation")
+        os.makedirs(vdir)
+        cwd = os.getcwd()
+        os.chdir(vdir)
+        try:
+            rc, lines, wall = call(validation.main, [])
+        finally:
+            os.chdir(cwd)
+        worst = next((ln for ln in lines if ln.startswith("Worst-case")), "")
+        log(f"[app] validation.main: exit {rc} in {wall:.2f} s; wrote "
+            f"{sorted(os.listdir(vdir))}; {worst}")
+        if rc != 0 or os.listdir(vdir) != ["VALIDATION_TORCH.md"]:
+            raise AssertionError(f"validation.main: exit {rc}, "
+                                 f"{os.listdir(vdir)}")
+        out["s"]["validation.main"] = wall
+
+        # entry(): the fused form (K1) once, equal to measure_green_avg.
+        fn, args = tentry.entry()
+        fused_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bpm, valid = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"]["K1"] = fused_cuda.LAUNCHES
+        cfg = PipelineConfig(window_seconds=4.0, acquisition_seconds=2.0)
+        _, mbpm, mvalid = offline.measure_green_avg(args[0], 30.0, cfg,
+                                                    use_pallas="fused")
+        same = np.array_equal(bpm.cpu().numpy(), mbpm) \
+            and np.array_equal(valid.cpu().numpy(), mvalid)
+        log(f"[app] entry(): {tuple(args[0].shape)} frames in {wall:.3f} s, "
+            f"K1 launches {out['launches']['K1']}, {int(valid.sum())} valid; "
+            f"== measure_green_avg(use_pallas='fused'): {same}")
+        if out["launches"]["K1"] != 1 or not same or not bool(valid.any()):
+            raise AssertionError(f"entry(): K1 {out['launches']['K1']}, "
+                                 f"equal {same}")
+        out["s"]["entry"] = wall
+        # K1 against its plain version at the shape entry() gives it.
+        carry = fused_cuda.init_carry(dev)
+        got, got_c = fused_cuda.fused_detect_roi_carry(args[0], carry)
+        want, want_c = fused_cuda.fused_detect_roi_plain(args[0], carry)
+        out["k1_err"] = compare(f"K1 at entry()'s {tuple(args[0].shape)}",
+                                tuple(got) + (got_c,), tuple(want) + (want_c,))
+        log(f"[check] K1 == plain at entry()'s {tuple(args[0].shape)}: "
+            f"max |err| {out['k1_err']}")
+    finally:
+        tmp_dir.cleanup()
+    log(f"[app] check times ({card}): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["s"].items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2701,7 +3098,18 @@ def main() -> int:
     launches["K6"] += analysis["launches"]["K6"]
     launches["K5"] += analysis["launches"]["K5"]
 
-    # 14. Timing (CUDA events; frames resident on the card unless stated).
+    # 14. The apps and the multi-face path: the video app (skin, MediaPipe
+    # with K5, --faces 2), LivePipeline and the pool with k_faces=2,
+    # evm_magnify (K6, K7), bpp, validation.main, entry() (K1); counters
+    # from 0 before each path.
+    t0 = time.perf_counter()
+    apps = run_app_slice(dev, frames, card)
+    log(f"[app] phase in {time.perf_counter() - t0:.1f} s ({card})")
+    for k, n in apps["launches"].items():
+        launches[k] += n
+    k1_err = max(k1_err, apps["k1_err"])
+
+    # 15. Timing (CUDA events; frames resident on the card unless stated).
     # The fused offline form is bound by host launches: timed again here,
     # after the serving phases, it shows what the process's state costs.
     t_ms = cuda_ms(fused_form)

@@ -27,7 +27,10 @@ import vhr_tpu_torch
 from vhr_tpu_torch import config, interop, serving
 from vhr_tpu_torch.analysis import context, main as analysis_main
 from vhr_tpu_torch.analysis.measurement import evm as measure_evm
-from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
+from vhr_tpu_torch import entry as tentry
+from vhr_tpu_torch import validation as tvalidation
+from vhr_tpu_torch.apps import (bpp, evm_magnify, rppg_livestream,
+                                rppg_video, serve_bpm)
 from vhr_tpu_torch.dsp import design
 from vhr_tpu_torch.models import mediapipe_face as tmp
 from vhr_tpu_torch.models import tflite_exec as texec
@@ -113,6 +116,25 @@ def test_live_slice_modules_import_without_jax():
             "vhr_tpu_torch.apps.rppg_video, "
             "vhr_tpu_torch.apps.rppg_livestream, "
             "vhr_tpu_torch.apps.serve_bpm, vhr_tpu_torch.io.video; "
+            "print('jax' in sys.modules, any(m == 'vhr_tpu' or "
+            "m.startswith('vhr_tpu.') for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+_APP_SLICE = ["vhr_tpu_torch.entry", "vhr_tpu_torch.models.multiface",
+              "vhr_tpu_torch.apps.bpp", "vhr_tpu_torch.apps.evm_magnify",
+              "vhr_tpu_torch.apps.rppg_video", "vhr_tpu_torch.validation"]
+
+
+@pytest.mark.parametrize("module", _APP_SLICE)
+def test_app_slice_modules_import_without_jax(module):
+    """Each module of the apps and multi-face slice (``entry``, the
+    multi-face detector, the ``bpp`` and ``evm_magnify`` apps, the video
+    app and ``validation``) loads neither jax nor any module of
+    ``vhr_tpu`` in a fresh interpreter, on its own."""
+    code = (f"import sys; import {module}; "
             "print('jax' in sys.modules, any(m == 'vhr_tpu' or "
             "m.startswith('vhr_tpu.') for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -360,7 +382,9 @@ def _plugin(measure, path):
                                    "measure_green_avg_file",
                                    "make_mediapipe_detector",
                                    "LivePipeline", "rppg_livestream",
-                                   "serve_bpm", "analysis.main"])
+                                   "serve_bpm", "analysis.main",
+                                   "rppg_video", "bpp", "evm_magnify",
+                                   "validation.main", "entry"])
 def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
     """Without a CUDA card an entry point refuses to start unless the
     caller passes ``device="cpu"`` (``--device cpu`` for an app); it never
@@ -382,9 +406,22 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
                               "--port", "0", "--height", "48", "--width",
                               "128", "--max-seconds", "0"),
             "analysis.main": _app(analysis_main.main, "--video", path,
-                                  "--methods", "green_avg")}[entry]
+                                  "--methods", "green_avg"),
+            "rppg_video": _app(rppg_video.main, path, "--out-dir",
+                               str(tmp_path / "out")),
+            "bpp": _app(bpp.main, path, "--json"),
+            "evm_magnify": _app(evm_magnify.main, path,
+                                str(tmp_path / "out.mp4")),
+            "validation.main": _app(tvalidation.main),
+            "entry": lambda **kw: tentry.entry(**kw)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+    if entry in ("validation.main", "entry"):
+        return      # with device="cpu" they run (tests/test_torch_apps.py)
+    if entry in ("bpp", "evm_magnify"):     # cv2 cannot open the file
+        with pytest.raises(OSError, match="failed to open"):
+            call(device="cpu")
+        return
     if entry in ("BpmServer", "LivePipeline"):
         assert call(device="cpu").device == torch.device("cpu")
     elif entry in ("rppg_livestream", "analysis.main"):

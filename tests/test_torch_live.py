@@ -248,7 +248,7 @@ def test_live_config_checks():
     with pytest.raises(ValueError, match="extra"):
         interop.live_config_from_jax(bad)
     # LivePipeline's argument errors, as the JAX package raises them; the
-    # multi-face pipeline is not ported yet.
+    # multi-face pipeline (k_faces > 1) runs step_multi.
     for kw, match in [(dict(transfer="yuv"), "transfer"),
                       (dict(fetch_every=0), "fetch_every"),
                       (dict(frames_per_call=0), "frames_per_call"),
@@ -258,8 +258,12 @@ def test_live_config_checks():
             live.LivePipeline(live.LiveConfig(), device="cpu", **kw)
         with pytest.raises(ValueError, match=match):
             jlive.LivePipeline(jlive.LiveConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        live.LivePipeline(live.LiveConfig(), k_faces=2, device="cpu")
+    multi = live.LivePipeline(live.LiveConfig(), k_faces=2, device="cpu")
+    assert isinstance(multi._state, live.MultiLiveState)
+    assert tuple(multi._state.count.shape) == (2,)
+    with pytest.raises(ValueError, match="single-face"):
+        live.LivePipeline(live.LiveConfig(use_fused=True), k_faces=2,
+                          device="cpu")
     with pytest.raises(ValueError, match="detector"):
         live.LivePipeline(live.LiveConfig(use_fused=True),
                           detector=lambda f: None, device="cpu")

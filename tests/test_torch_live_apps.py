@@ -108,10 +108,16 @@ def test_livestream_profile_trace(clip_file, tmp_path):
     assert files and files[0].stat().st_size > 0
 
 
-def test_livestream_unported_choices_raise(clip_file):
+def test_livestream_unported_choices_raise(clip_file, capsys):
+    """The learned detectors still raise naming item 12; ``--faces 2``
+    (item 12's skin path, ported) runs the multi-face step."""
     base = ["--video", clip_file["path"], "--no-display", "--device", "cpu"]
+    assert rppg_livestream.main(base + ["--faces", "2", "--max-frames",
+                                        "20"]) == 0
+    assert "processed 20 frames" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 12"):
-        rppg_livestream.main(base + ["--faces", "2"])
+        rppg_livestream.main(base + ["--faces", "2", "--detector",
+                                     "refined"])
     with pytest.raises(NotImplementedError, match="item 12"):
         rppg_livestream.main(base + ["--detector", "landmarker"])
     with pytest.raises(SystemExit):
@@ -123,7 +129,9 @@ def test_resolve_detector_choices():
     for name in ("landmarker", "landmarker-real", "refined"):
         with pytest.raises(NotImplementedError, match="item 12"):
             rppg_video._resolve_detector(name)
-    for name in ("skin", "mediapipe", "refined"):
+    # The skin choice's multi-face detector is the pipelines' default.
+    assert rppg_video._resolve_detector_multi("skin", 2) is None
+    for name in ("mediapipe", "refined"):
         with pytest.raises(NotImplementedError, match="item 12"):
             rppg_video._resolve_detector_multi(name, 2)
     with pytest.raises(SystemExit):

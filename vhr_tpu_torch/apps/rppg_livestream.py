@@ -10,13 +10,14 @@ Usage::
 
     python -m vhr_tpu_torch.apps.rppg_livestream [--camera 0] [--video FILE]
         [--max-frames N] [--no-display] [--fused] [--transfer bgr|i420]
-        [--detector skin|mediapipe[-bf16|-exact]] [--device cpu]
+        [--faces K] [--detector skin|mediapipe[-bf16|-exact]] [--device cpu]
 
 ``--video`` replays a file as if it were a camera (useful headless);
 ``--no-display`` prints the BPM trace instead of opening windows;
 ``--fused`` routes detection and the ROI means through kernel K4;
-``--device`` defaults to the CUDA card.  ``--faces K`` > 1 needs the
-multi-face step, not yet ported (ROADMAP queue 1, item 12).
+``--faces K`` monitors K subjects at once (the multi-face step,
+``pipeline.live.step_multi``, with the skin detector); ``--device``
+defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ def main(argv=None) -> int:
                         "(kernel K4; needs frame H %% 8 == 0 and W*3 %% "
                         "128 == 0); lowest-latency production mode")
     p.add_argument("--faces", type=int, default=1,
-                   help="monitor up to K subjects at once; K > 1 is not "
-                        "yet ported (ROADMAP queue 1, item 12)")
+                   help="monitor up to K subjects at once (K live chains "
+                        "on the device; K > 1 with the skin detector)")
     p.add_argument("--transfer", default="bgr", choices=("bgr", "i420"),
                    help="host->device frame staging: i420 ships planar "
                         "YUV 4:2:0 (half the bytes) and reconstructs BGR "

@@ -25,7 +25,7 @@ from .models.tflite import load_task_models
 from .models.tflite_exec import (_find_residual_stages, const_inputs,
                                  fold_dequantize)
 from .ops.roi import HoldoverCarry
-from .pipeline.live import LiveConfig, LiveState
+from .pipeline.live import LiveConfig, LiveState, MultiLiveState
 
 __all__ = ["skin_config_from_jax", "fused_carry_from_numpy",
            "fused_carry_to_numpy", "holdover_carry_from_numpy",
@@ -101,11 +101,13 @@ def live_config_from_jax(d: dict) -> LiveConfig:
     return LiveConfig(**d)
 
 
-def live_state_from_numpy(leaves, device=None) -> LiveState:
+def live_state_from_numpy(leaves, device=None, multi: bool = False):
     """A JAX ``LiveState`` as numpy leaves (a mapping by field name, or the
     NamedTuple itself) -> the port's :class:`LiveState` on ``device``.  The
     leaves may carry a leading slot axis (a pool's state) or not (one
-    stream); the shapes must agree with each other."""
+    stream); the shapes must agree with each other.  ``multi``: a
+    ``MultiLiveState`` (a face axis after the slot axis on every field but
+    ``frame_idx``) -> :class:`MultiLiveState`."""
     d = leaves._asdict() if hasattr(leaves, "_asdict") else dict(leaves)
     if set(d) != set(_LIVE_DTYPES):
         raise ValueError(f"live state fields differ: extra "
@@ -119,15 +121,18 @@ def live_state_from_numpy(leaves, device=None) -> LiveState:
             "frame_idx": (), "ring_bgr": N + (3,)}
     for k, tail in want.items():
         shape = a[k].shape
-        ok = (shape[:len(lead)] == lead
-              and (tail is None and len(shape) == len(lead) + 2
-                   and shape[-1] == 2 or shape[len(lead):] == tail))
+        if multi and k == "frame_idx":
+            ok = len(lead) >= 1 and shape == lead[:-1]
+        else:
+            ok = (shape[:len(lead)] == lead
+                  and (tail is None and len(shape) == len(lead) + 2
+                       and shape[-1] == 2 or shape[len(lead):] == tail))
         if not ok:
             raise ValueError(f"live state field {k} has shape {shape}, "
                              f"inconsistent with count {lead} and ring "
                              f"{N}")
-    return LiveState(**{k: torch.as_tensor(v, device=device)
-                        for k, v in a.items()})
+    return (MultiLiveState if multi else LiveState)(
+        **{k: torch.as_tensor(v, device=device) for k, v in a.items()})
 
 
 def live_state_to_numpy(state: LiveState) -> Dict[str, np.ndarray]:

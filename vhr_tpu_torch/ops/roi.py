@@ -2,8 +2,9 @@
 
 Port of ``vhr_tpu/ops/roi.py`` (``BoxTrack``, ``roi_from_bbox``,
 ``cheek_roi``, ``forehead_roi``, ``measurement_roi``, ``holdover``,
-``holdover_with_carry``).  Boxes and ROIs are ``(..., 4)`` int32 tensors
-``[x1, y1, x2, y2]``.
+``holdover_with_carry``, and the K-track ``holdover_multi``,
+``init_multi_carry`` and ``holdover_multi_step``).  Boxes and ROIs are
+``(..., 4)`` int32 tensors ``[x1, y1, x2, y2]``.
 
 The JAX holdover is a ``lax.scan`` over frames.  Here it is closed-form:
 with ``j(t)`` the last valid index up to ``t`` (a ``cummax``) and
@@ -11,6 +12,10 @@ with ``j(t)`` the last valid index up to ``t`` (a ``cummax``) and
 ``cumsum``), frame ``t`` is valid when
 ``v | has_last & (~attempted | fails <= budget)``, where ``budget`` is
 ``hold_frames`` after a detection and the carried budget before the first.
+
+The K-track holdover matches candidates to tracks, so it stays a step a
+frame (:func:`holdover_multi_step`), shared by the offline scan, the live
+multi-face step and the serving pool's tick.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from ..config import ROIConfig
 
 __all__ = ["BoxTrack", "roi_from_bbox", "cheek_roi", "forehead_roi",
            "measurement_roi", "holdover", "holdover_with_carry",
-           "init_holdover_carry"]
+           "init_holdover_carry", "holdover_multi", "init_multi_carry",
+           "holdover_multi_step"]
 
 HoldoverCarry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -141,3 +147,134 @@ def holdover_with_carry(box: torch.Tensor, valid: torch.Tensor,
     budget_end = torch.where(has[-1], drained, b).to(torch.int32)
     final = (boxes[-1], budget_end, has[-1])
     return BoxTrack(box=boxes, valid=out_valid), final
+
+
+MultiCarry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# The matching's "no pair" cost, as the JAX step's float32 1e9.
+_INF = 1e9
+
+
+def init_multi_carry(k_faces: int, lead: Tuple[int, ...] = (),
+                     device=None) -> MultiCarry:
+    """Zeroed K-track carry ``(last (..., K, 4) int32, budget (..., K)
+    int32, has (..., K) bool)`` for :func:`holdover_multi_step`, with
+    leading axes ``lead``."""
+    lead = tuple(lead)
+    return (torch.zeros(lead + (k_faces, 4), dtype=torch.int32,
+                        device=device),
+            torch.zeros(lead + (k_faces,), dtype=torch.int32, device=device),
+            torch.zeros(lead + (k_faces,), dtype=torch.bool, device=device))
+
+
+def holdover_multi_step(carry: MultiCarry, cand: torch.Tensor,
+                        cval: torch.Tensor, hold_frames: int = 15,
+                        attempted=True
+                        ) -> Tuple[MultiCarry, Tuple[torch.Tensor,
+                                                     torch.Tensor]]:
+    """One frame of the K-track identity-matched holdover, over any leading
+    axes (the serving pool's slots).
+
+    1. Greedy nearest-centre matching of valid candidates to live tracks:
+       K rounds, each taking the first minimum of the flattened (track,
+       candidate) cost, the float32 L1 distance of the box centres
+       (``1e9`` where a track or a candidate is not available).
+    2. Matched tracks take the candidate's box and a full budget;
+       unmatched live tracks hold their box while the budget lasts.
+    3. Unmatched candidates claim free slots (never used, or budget spent)
+       left to right: the leftmost candidate the lowest free slot (a stable
+       sort, so equal centres keep the candidates' order).
+
+    ``attempted`` (a bool or a ``(...)`` tensor) False holds every track
+    without matching, draining or claiming (the detection cadence).
+
+    Args:
+      carry: ``(last (..., K, 4), budget (..., K), has (..., K))``.
+      cand/cval: this frame's ``(..., K, 4)`` candidates and ``(..., K)``
+        validity.
+    Returns:
+      ``(new_carry, (boxes (..., K, 4), valid (..., K)))``.
+    """
+    last, budget, has = carry
+    K = cand.shape[-2]
+    dev = cand.device
+    cval = cval.to(torch.bool)
+    cand = cand.to(torch.int32)
+
+    def centers(b):
+        bf = b.to(torch.float32)
+        return (bf[..., 0] + bf[..., 2]) * 0.5, (bf[..., 1] + bf[..., 3]) * 0.5
+
+    tx, ty = centers(last)
+    cx, cy = centers(cand)
+    cost = ((tx[..., :, None] - cx[..., None, :]).abs()
+            + (ty[..., :, None] - cy[..., None, :]).abs())     # (..., K, K)
+    cost = torch.where(has[..., :, None] & cval[..., None, :], cost, _INF)
+
+    ar = torch.arange(K, device=dev)
+    assign = torch.full(cval.shape, -1, dtype=torch.int64, device=dev)
+    avail_t, avail_c = has, cval
+    for _ in range(K):
+        masked = torch.where(avail_t[..., :, None] & avail_c[..., None, :],
+                             cost, _INF).flatten(-2)           # (..., K*K)
+        flat = torch.argmin(masked, dim=-1, keepdim=True)      # first min
+        ok = torch.gather(masked, -1, flat) < _INF             # (..., 1)
+        ti, ci = flat // K, flat % K
+        assign = torch.where(ok & (ar == ti), ci, assign)
+        avail_t = avail_t & ~(ok & (ar == ti))
+        avail_c = avail_c & ~(ok & (ar == ci))
+    got = assign >= 0
+
+    # New subjects claim free slots, leftmost candidate -> lowest free slot.
+    unmatched = cval & avail_c
+    free = ~got & (~has | (budget <= 0))
+    cand_order = torch.argsort(torch.where(unmatched, cx, _INF), dim=-1,
+                               stable=True)
+    free_rank = torch.cumsum(free.to(torch.int64), dim=-1) - 1
+    n_new = unmatched.sum(-1, keepdim=True)
+    seed = free & (free_rank < n_new)
+    cidx = torch.gather(cand_order, -1, free_rank.clamp(0, K - 1))
+    assign = torch.where(seed, cidx, assign)
+    got = assign >= 0
+
+    a = assign.clamp(0, K - 1)
+    picked = torch.gather(cand, -2, a[..., None].expand(cand.shape))
+    new_last = torch.where(got[..., None], picked, last)
+    reuse = ~got & has & (budget > 0)
+    new_budget = torch.where(got, torch.full_like(budget, hold_frames),
+                             torch.where(reuse, budget - 1, budget))
+    new_has = got | has
+    out_valid = got | reuse
+
+    if attempted is not True:
+        # Not attempted (detection cadence): every live track holds its box
+        # and budget; the matching above is discarded.  (A literal True
+        # skips this: a scalar copied to the card would wait for its queue.)
+        att = torch.as_tensor(attempted, dtype=torch.bool, device=dev)
+        new_last = torch.where(att[..., None, None], new_last, last)
+        new_budget = torch.where(att[..., None], new_budget, budget)
+        new_has = torch.where(att[..., None], new_has, has)
+        out_valid = torch.where(att[..., None], out_valid, has)
+    return (new_last, new_budget, new_has), (new_last, out_valid)
+
+
+def holdover_multi(box: torch.Tensor, valid: torch.Tensor,
+                   hold_frames: int = 15,
+                   attempted: Optional[torch.Tensor] = None) -> BoxTrack:
+    """K-track holdover with identity assignment over a clip: per-frame
+    candidates ``box (T, K, 4)``, ``valid (T, K)`` (``attempted (T,)``:
+    frames where detection ran, ``None`` for all) -> :class:`BoxTrack` with
+    ``box (T, K, 4)``, ``valid (T, K)``, slot k one subject for the whole
+    clip.  :func:`holdover_multi_step` a frame, from a zeroed carry."""
+    T, K = box.shape[0], box.shape[1]
+    carry = init_multi_carry(K, device=box.device)
+    boxes, valids = [], []
+    for t in range(T):
+        carry, (b, v) = holdover_multi_step(
+            carry, box[t], valid[t], hold_frames,
+            True if attempted is None else attempted[t])
+        boxes.append(b)
+        valids.append(v)
+    if T == 0:
+        return BoxTrack(box=box.to(torch.int32), valid=valid.to(torch.bool))
+    return BoxTrack(box=torch.stack(boxes), valid=torch.stack(valids))

@@ -40,12 +40,14 @@ def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
               lengths: np.ndarray, chunk: int = 64) -> tuple:
     """Exact DFT peak for growing windows ``x[:N]`` for each N in lengths.
 
-    Evaluated ``chunk`` lengths at a time, so the ``(chunk, K, N)`` angle
-    tensor stays small.  The float32 expressions keep the JAX order of
-    operations.
+    ``x`` is ``(T, *batch)``; returns ``(bpm (L, *batch), valid (L,
+    *batch))``.  Evaluated ``chunk`` lengths at a time, so the ``(chunk, K,
+    N)`` angle tensor stays small.  The float32 expressions keep the JAX
+    order of operations.
     """
     w_max = int(lengths.max())
-    xs = x[:w_max]
+    xs = x[:w_max].movedim(0, -1)                                  # (*b, n)
+    bdims = (1,) * (xs.dim() - 1)
     dt, dev = x.dtype, x.device
     n = torch.arange(w_max, dtype=dt, device=dev)
     k_max = int(np.floor(band.high_hz * w_max / fps))
@@ -54,25 +56,38 @@ def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
     for s in range(0, len(lengths), chunk):
         N = torch.as_tensor(lengths[s:s + chunk], dtype=dt,
                             device=dev)[:, None]                  # (B, 1)
-        keep = n[None, :] < N                                      # (B, n)
-        mean = torch.where(keep, xs, 0.0).sum(-1, keepdim=True) / N
-        xm = torch.where(keep, xs - mean, 0.0)                     # (B, n)
+        Nb = N.reshape((-1,) + bdims + (1,))                      # (B, 1*, 1)
+        keep = n < Nb                                              # (B,1*,n)
+        mean = torch.where(keep, xs, 0.0).sum(-1, keepdim=True) / Nb
+        xm = torch.where(keep, xs - mean, 0.0)                     # (B,*b,n)
         # scalar / tensor in PyTorch is a multiplication by the reciprocal;
         # a true division rounds like the JAX expression.
         ang = (torch.full_like(N, -2.0 * math.pi) / N)[:, :, None] \
             * k[None, :, None] * n[None, None, :]                  # (B, K, n)
-        re = (torch.cos(ang) * xm[:, None, :]).sum(-1)
-        im = (torch.sin(ang) * xm[:, None, :]).sum(-1)
-        mag = torch.sqrt(re * re + im * im)                        # (B, K)
-        freq = k[None, :] * (torch.full_like(N, fps) / N)
+        cos_a = torch.cos(ang).reshape((-1,) + bdims + ang.shape[1:])
+        sin_a = torch.sin(ang).reshape((-1,) + bdims + ang.shape[1:])
+        re = (cos_a * xm[..., None, :]).sum(-1)                    # (B,*b,K)
+        im = (sin_a * xm[..., None, :]).sum(-1)
+        mag = torch.sqrt(re * re + im * im)
+        freq = k[None, :] * (torch.full_like(N, fps) / N)          # (B, K)
         half = torch.floor((N - 1.0) / 2.0)
         mask = ((freq >= band.low_hz) & (freq <= band.high_hz)
                 & (k[None, :] >= 1.0) & (k[None, :] <= half))
-        banded = torch.where(mask, mag, torch.full_like(mag, float("-inf")))
-        idx = torch.argmax(banded, dim=-1)
-        bpms.append(torch.gather(freq, 1, idx[:, None])[:, 0] * 60.0)
-        valids.append(mask.any(-1))
+        mask_b = mask.reshape((-1,) + bdims + mask.shape[1:])
+        banded = torch.where(mask_b, mag, torch.full_like(mag, float("-inf")))
+        idx = torch.argmax(banded, dim=-1)                         # (B, *b)
+        freq_b = freq.reshape((-1,) + bdims + freq.shape[1:])
+        bpms.append(torch.gather(freq_b.expand(banded.shape), -1,
+                                 idx[..., None])[..., 0] * 60.0)
+        valids.append(mask_b.any(-1).expand(idx.shape))
     return torch.cat(bpms), torch.cat(valids)
+
+
+def _windows_last(x: torch.Tensor, length: int) -> torch.Tensor:
+    """All length-``length`` windows of ``(T, *batch)`` with the window
+    axis last: ``(T-L+1, *batch, L)``."""
+    wins = sliding_windows(x, length)
+    return wins if x.dim() == 1 else wins.movedim(1, -1).contiguous()
 
 
 def _as_float(signal: torch.Tensor) -> torch.Tensor:
@@ -85,11 +100,13 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
 
     Frame ``i`` sees ``signal[max(0, i-window_len+1) : i+1]`` demeaned and
     produces an estimate once at least ``acquisition_len`` samples exist.
+    ``signal`` is ``(T,)``, or ``(T, *batch)`` for independent traces
+    (the multi-face measure's K faces) estimated in one batch.
     """
     T = signal.shape[0]
     x = _as_float(signal)
-    bpm = torch.zeros((T,), dtype=x.dtype, device=x.device)
-    valid = torch.zeros((T,), dtype=torch.bool, device=x.device)
+    bpm = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    valid = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
 
     first = acquisition_len - 1
     if first >= T:
@@ -100,12 +117,14 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
         lengths = np.arange(first + 1, ramp_end + 2)
         r_bpm, r_valid = _ramp_bpm(x, fps, band, lengths)
         # The reference's estimate_bpm returns None for N < 8.
-        r_valid = r_valid & torch.as_tensor(lengths >= 8, device=x.device)
+        r_valid = r_valid & torch.as_tensor(
+            lengths >= 8, device=x.device).reshape(
+                (-1,) + (1,) * (x.dim() - 1))
         bpm[first:ramp_end + 1] = r_bpm
         valid[first:ramp_end + 1] = r_valid
 
     if T >= window_len:
-        wins = sliding_windows(x, window_len)                  # (T-W+1, W)
+        wins = _windows_last(x, window_len)                    # (T-W+1,*b,W)
         wins = wins - wins.mean(-1, keepdim=True)
         est = spectral.estimate_bpm(wins, fps, band)
         bpm[window_len - 1:] = est.bpm
@@ -122,10 +141,10 @@ def rolling_bpm_welch(signal: torch.Tensor, fps: float, band: HRBand,
     window)."""
     T = signal.shape[0]
     x = _as_float(signal)
-    bpm = torch.zeros((T,), dtype=x.dtype, device=x.device)
-    valid = torch.zeros((T,), dtype=torch.bool, device=x.device)
+    bpm = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    valid = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     if T >= window_len:
-        est = spectral.estimate_bpm_welch(sliding_windows(x, window_len),
+        est = spectral.estimate_bpm_welch(_windows_last(x, window_len),
                                           fps, band, segment_seconds)
         bpm[window_len - 1:] = est.bpm
         valid[window_len - 1:] = est.valid

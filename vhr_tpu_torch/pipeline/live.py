@@ -4,7 +4,9 @@ Port of ``vhr_tpu/pipeline/live.py`` (``pack_output``, ``unpack_output``,
 ``LiveConfig``, ``LiveState``, ``LiveOutput``, ``init_state``,
 ``_masked_welch_psd``, ``_masked_welch_bpm``, ``_ring_pulse``,
 ``_welch_snr``, ``_method_bpm``, ``step``, ``make_step``,
-``_i420_frame_to_bgr``, ``bgr_to_i420_host``, ``LivePipeline``).  The
+``_i420_frame_to_bgr``, ``bgr_to_i420_host``, ``LivePipeline``, and the
+multi-face ``MultiLiveState``, ``init_state_multi``, ``step_multi`` and
+``make_step_multi``).  The
 per-frame update is the reference's live loop as tensor code: detection
 (or the fused kernel), landmark holdover, ROI mean, one causal SOS step, a
 masked ring write and a masked Welch BPM over the ring.  The method
@@ -31,8 +33,11 @@ step N, so its only wait for the card is that fetch.  With
 ``transfer="i420"`` a step takes a planar YUV 4:2:0 frame and rebuilds BGR
 on the card (``ops.color.i420_to_bgr_flat``).
 
-Not ported yet: ``step_multi`` and ``k_faces > 1`` (ROADMAP queue 1,
-item 12).
+The multi-face step (:func:`step_multi`) monitors K subjects of one frame:
+the top-K skin regions (``models.multiface``), the K-track holdover
+(``ops.roi.holdover_multi_step``, the offline scan's step), the K ROIs'
+means in one read of the frame, and then each (slot, face) pair is one
+stream of the same update, flattened into the slot axis.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ import torch
 from ..config import BAND_LIVE, HRBand, ROIConfig
 from ..device import resolve_device
 from ..dsp import design, filters, projections, spectral
-from ..models import skin_detector
+from ..models import multiface, skin_detector
 from ..ops import color
+from ..ops import reduce as vreduce
 from ..ops import roi as vroi
 from ..ops.fused_cuda import fused_detect_roi_slots
 from ..ops.roi_means_cuda import roi_channel_means_cuda
@@ -57,7 +63,8 @@ from .offline import DetectorFn
 
 __all__ = ["LiveConfig", "LiveState", "LiveOutput", "init_state", "step",
            "make_step", "pack_output", "unpack_output", "bgr_to_i420_host",
-           "LivePipeline"]
+           "LivePipeline", "MultiLiveState", "init_state_multi", "step_multi",
+           "make_step_multi"]
 
 
 def pack_output(o: "LiveOutput") -> torch.Tensor:
@@ -170,6 +177,35 @@ def _zero_state(cfg: LiveConfig, lead: Tuple[int, ...], device=None
 def init_state(cfg: LiveConfig = LiveConfig(), device=None) -> LiveState:
     """Zeroed state (a zeroed state is a fresh stream)."""
     return _zero_state(cfg, (), device)
+
+
+class MultiLiveState(NamedTuple):
+    """K subjects' live state: :class:`LiveState`'s fields with a face axis
+    ``(K,)`` after any slot axis, except ``frame_idx``, the frame's."""
+
+    ring_raw: torch.Tensor     # (K, N)
+    ring_filt: torch.Tensor    # (K, N)
+    count: torch.Tensor        # (K,)
+    zi: torch.Tensor           # (K, n_sections, 2)
+    last_box: torch.Tensor     # (K, 4)
+    hold_budget: torch.Tensor  # (K,)
+    has_last: torch.Tensor     # (K,)
+    frame_idx: torch.Tensor    # () wall-frame counter (cadence phase)
+    ring_bgr: torch.Tensor     # (K, N, 3)
+
+
+def _zero_multi_state(cfg: LiveConfig, lead: Tuple[int, ...], k_faces: int,
+                      device=None) -> MultiLiveState:
+    z = _zero_state(cfg, tuple(lead) + (k_faces,), device)
+    return MultiLiveState(**dict(
+        z._asdict(), frame_idx=torch.zeros(tuple(lead), dtype=torch.int32,
+                                           device=device)))
+
+
+def init_state_multi(cfg: LiveConfig = LiveConfig(), k_faces: int = 2,
+                     device=None) -> MultiLiveState:
+    """Zeroed K-subject state."""
+    return _zero_multi_state(cfg, (), k_faces, device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -435,6 +471,79 @@ def _finish_batched(state: LiveState, cfg: LiveConfig, sos: np.ndarray,
     return new_state, out
 
 
+def _multi_update(state: MultiLiveState, frames: torch.Tensor,
+                  attempt: torch.Tensor, active: torch.Tensor,
+                  cfg: LiveConfig, k_faces: int, detector,
+                  run_detector: bool
+                  ) -> Tuple[MultiLiveState, LiveOutput]:
+    """The K-subject update over a leading slot axis: the top-K detector
+    (``run_detector=False`` stands for one that found nothing), the K-track
+    holdover with the cadence's 'attempted' semantics, the K ROIs' means in
+    one read of each frame, then :func:`_finish_batched` with each (slot,
+    face) pair as a stream of its own.  Output fields are ``(S, K, ...)``."""
+    S, H, W, _ = frames.shape
+    K = k_faces
+    dev = frames.device
+    if run_detector:
+        cand, cval = (detector(frames) if detector is not None
+                      else multiface.detect_faces_multi(frames, K))
+        cand = cand.to(torch.int32)
+    else:
+        cand = torch.zeros((S, K, 4), dtype=torch.int32, device=dev)
+        cval = torch.zeros((S, K), dtype=torch.bool, device=dev)
+    (new_last, new_budget, new_has), (boxes, face_valid) = \
+        vroi.holdover_multi_step(
+            (state.last_box, state.hold_budget, state.has_last), cand, cval,
+            cfg.roi.landmark_hold_frames, attempted=attempt)
+    face_valid = face_valid & active[:, None]
+    rois = vroi.measurement_roi(boxes, cfg.roi, W, H, cfg.roi_site)
+    rois = torch.where(face_valid[..., None], rois, 0)
+    means, _ = vreduce.roi_channel_means_multi(frames, rois)   # (S, K, 3)
+
+    def flat(x):
+        return x.reshape((S * K,) + x.shape[2:])
+
+    streams = LiveState(
+        ring_raw=flat(state.ring_raw), ring_filt=flat(state.ring_filt),
+        count=flat(state.count), zi=flat(state.zi),
+        last_box=flat(state.last_box), hold_budget=flat(state.hold_budget),
+        has_last=flat(state.has_last),
+        frame_idx=state.frame_idx.repeat_interleave(K),
+        ring_bgr=flat(state.ring_bgr))
+    new, out = _finish_batched(streams, cfg, _sos(cfg),
+                               active.repeat_interleave(K), flat(means),
+                               flat(face_valid), flat(new_last),
+                               flat(new_budget), flat(new_has))
+    unflat = lambda x: x.reshape((S, K) + x.shape[1:])
+    new = MultiLiveState(**dict(
+        {k: unflat(v) for k, v in new._asdict().items()},
+        frame_idx=state.frame_idx + active.to(torch.int32)))
+    return new, LiveOutput(*(unflat(x) for x in out))
+
+
+def step_multi(state: MultiLiveState, frame: torch.Tensor, cfg: LiveConfig,
+               k_faces: int = 2, detector=None
+               ) -> Tuple[MultiLiveState, LiveOutput]:
+    """One frame of K-subject live monitoring: ``(state, (H, W, 3) u8
+    frame) -> (state, out)``, every output field with a leading ``(K,)``
+    face axis.  ``detector`` replaces the top-K skin detector with any
+    ``frames (1, H, W, 3) -> (boxes (1, K, 4), valid (1, K))`` callable.
+    ``cfg.use_fused`` is single-face and raises here."""
+    if cfg.use_fused:
+        raise ValueError("use_fused is single-face (pipeline.live.step); "
+                         "step_multi runs the multi-face detector path")
+    _check_method(cfg)
+    frames = torch.as_tensor(frame)[None]
+    one = torch.ones((1,), dtype=torch.bool, device=frames.device)
+    st = MultiLiveState(*(x[None] for x in state))
+    attempt = (st.frame_idx % cfg.detect_every == 0
+               if cfg.detect_every > 1 else one)
+    new, out = _multi_update(st, frames, attempt, one, cfg, k_faces,
+                             detector, True)
+    return (MultiLiveState(*(x[0] for x in new)),
+            LiveOutput(*(x[0] for x in out)))
+
+
 def step(state: LiveState, frame: torch.Tensor, cfg: LiveConfig,
          detector: Optional[DetectorFn] = None
          ) -> Tuple[LiveState, LiveOutput]:
@@ -492,6 +601,25 @@ def make_step(cfg: LiveConfig = LiveConfig(),
     return lambda state, frame: step(state, frame, cfg, detector)
 
 
+def make_step_multi(cfg: LiveConfig = LiveConfig(), k_faces: int = 2,
+                    detector=None, transfer: str = "bgr"):
+    """:func:`step_multi` as a ``(state, frame) -> (state, out)`` callable,
+    with its configuration checked once (``transfer`` as in
+    :func:`make_step`)."""
+    if transfer not in ("bgr", "i420"):
+        raise ValueError(f"transfer must be 'bgr' or 'i420', got {transfer!r}")
+    if cfg.use_fused:
+        raise ValueError("use_fused is single-face (pipeline.live.step); "
+                         "make_step_multi runs the multi-face detector path")
+    _check_method(cfg)
+    if transfer == "i420":
+        return lambda state, frame: step_multi(
+            state, _i420_frame_to_bgr(torch.as_tensor(frame)), cfg, k_faces,
+            detector)
+    return lambda state, frame: step_multi(state, frame, cfg, k_faces,
+                                           detector)
+
+
 class LivePipeline:
     """One-frame-deep pipelined live loop: enqueue frame N, then read N-1.
 
@@ -523,7 +651,8 @@ class LivePipeline:
     The two batching levers exclude each other.  ``device`` is the CUDA
     card by default (raises without one); pass ``device="cpu"`` for the
     CPU, where every step runs to its end before :meth:`submit` returns.
-    ``k_faces > 1`` (``step_multi``) is not ported yet.
+    ``k_faces > 1`` runs :func:`step_multi` (``detector`` then follows the
+    multi-face contract); every output field gains a ``(K,)`` face axis.
     """
 
     def __init__(self, cfg: LiveConfig = LiveConfig(),
@@ -535,10 +664,6 @@ class LivePipeline:
                              f"got {transfer!r}")
         _check_fused(cfg, detector)
         _check_method(cfg)
-        if k_faces > 1:
-            raise NotImplementedError(
-                "k_faces > 1 needs step_multi and models/multiface.py, not "
-                "yet ported (ROADMAP queue 1, item 12)")
         if fetch_every < 1:
             raise ValueError("fetch_every must be >= 1")
         if frames_per_call < 1:
@@ -551,8 +676,12 @@ class LivePipeline:
         self.transfer = transfer
         self._fetch_every = fetch_every
         self._frames_per_call = frames_per_call
-        self._step = make_step(cfg, detector, transfer)
-        self._state = init_state(cfg, self.device)
+        if k_faces > 1:
+            self._step = make_step_multi(cfg, k_faces, detector, transfer)
+            self._state = init_state_multi(cfg, k_faces, self.device)
+        else:
+            self._step = make_step(cfg, detector, transfer)
+            self._state = init_state(cfg, self.device)
         self._cuda = self.device.type == "cuda"
         self._buf: list = []        # host frames of a partial call
         self._batch: list = []      # packed outputs awaiting their fetch

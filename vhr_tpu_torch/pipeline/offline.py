@@ -25,6 +25,11 @@ the results equal a whole-clip pass; the detect-then-reduce chunks take
 their ROI means on kernel K3, or from the I420 planes.  The stream decodes
 on one cv2 thread or several (``n_decoders``) and stages BGR or planar I420
 (``transfer``).
+
+:func:`extract_signals_multi` and :func:`measure_green_avg_multi` monitor K
+subjects of one clip: the top-K skin regions a frame
+(``models.multiface``), the identity-matched K-track holdover, the K ROIs'
+means in one read of each frame, and the K rolling estimates as one batch.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from ..dsp import design, filters, ica as ica_mod, spectral
 from ..dsp.filters import forward_fill
 from ..dsp.projections import PULSES
 from ..io.video import ChunkReader
-from ..models import skin_detector
+from ..models import multiface, skin_detector
 from ..ops import color
 from ..ops import reduce as vreduce
 from ..ops import roi as vroi
@@ -56,7 +61,8 @@ __all__ = ["SignalTrace", "extract_signals", "extract_signals_fused",
            "extract_signals_streaming", "measure_green_avg",
            "measure_green_avg_file", "measure_projection", "AdaptiveResult",
            "adaptive_pulse_select", "measure_adaptive", "measure_ica",
-           "measure_app_welch", "to_measurement_array"]
+           "measure_app_welch", "to_measurement_array",
+           "extract_signals_multi", "measure_green_avg_multi"]
 
 # A detector maps (T, H, W, 3) u8 -> ((T, 4) int32 boxes, (T,) bool valid).
 DetectorFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -123,22 +129,33 @@ def _track(frames: torch.Tensor, cfg: PipelineConfig, det_fn: DetectorFn,
     return _cadence_track(b_sub, v_sub, T, cfg, detect_every, W, H, carry)
 
 
+def _spread_cadence(b_sub: torch.Tensor, v_sub: torch.Tensor, T: int,
+                    detect_every: int):
+    """Detections of the cadence frames ``[::detect_every]`` spread over
+    ``T`` frames: ``(boxes, valid, attempted (T,) or None)``, zero and
+    not attempted off the cadence."""
+    if detect_every == 1:
+        return b_sub, v_sub, None
+    dev = b_sub.device
+    raw_boxes = torch.zeros((T,) + tuple(b_sub.shape[1:]), dtype=b_sub.dtype,
+                            device=dev)
+    raw_valid = torch.zeros((T,) + tuple(v_sub.shape[1:]), dtype=torch.bool,
+                            device=dev)
+    attempted = torch.zeros((T,), dtype=torch.bool, device=dev)
+    raw_boxes[::detect_every] = b_sub
+    raw_valid[::detect_every] = v_sub
+    attempted[::detect_every] = True
+    return raw_boxes, raw_valid, attempted
+
+
 def _cadence_track(b_sub: torch.Tensor, v_sub: torch.Tensor, T: int,
                    cfg: PipelineConfig, detect_every: int, W: int, H: int,
                    carry: Optional[vroi.HoldoverCarry] = None
                    ) -> Tuple[vroi.BoxTrack, torch.Tensor, vroi.HoldoverCarry]:
     """:func:`_track` from the detections of the cadence frames ``[::
     detect_every]`` of ``T`` frames of a ``W x H`` frame."""
-    dev = b_sub.device
-    if detect_every > 1:
-        raw_boxes = torch.zeros((T, 4), dtype=b_sub.dtype, device=dev)
-        raw_valid = torch.zeros((T,), dtype=torch.bool, device=dev)
-        attempted = torch.zeros((T,), dtype=torch.bool, device=dev)
-        raw_boxes[::detect_every] = b_sub
-        raw_valid[::detect_every] = v_sub
-        attempted[::detect_every] = True
-    else:
-        raw_boxes, raw_valid, attempted = b_sub, v_sub, None
+    raw_boxes, raw_valid, attempted = _spread_cadence(b_sub, v_sub, T,
+                                                      detect_every)
     track, carry = vroi.holdover_with_carry(
         raw_boxes, raw_valid, cfg.roi.landmark_hold_frames, carry,
         attempted=attempted)
@@ -177,9 +194,77 @@ def extract_signals_fused(frames: torch.Tensor,
                        boxes=res.boxes)
 
 
+def extract_signals_multi(frames: torch.Tensor, k_faces: int = 2,
+                          cfg: PipelineConfig = PipelineConfig(),
+                          det: Optional[skin_detector.SkinDetectorConfig]
+                          = None,
+                          detector=None,
+                          detect_every: int = 1) -> SignalTrace:
+    """Multi-subject :func:`extract_signals`: per-face ROI means.
+
+    The top-``k_faces`` skin regions a frame
+    (``models.multiface.detect_faces_multi``, tuned by ``det``), the
+    identity-matched K-track holdover (``ops.roi.holdover_multi``), and the
+    K ROIs' means in one read of each frame
+    (``ops.reduce.roi_channel_means_multi``).  ``detector`` replaces the
+    skin detector with any ``frames -> (boxes (T, K, 4), valid (T, K))``
+    callable.  ``detect_every=N`` detects on every N-th frame; the K-track
+    holdover holds identity through the rest without draining budgets.
+
+    Returns a :class:`SignalTrace` with a face axis on every field: ``bgr
+    (T, K, 3)``, ``valid (T, K)``, ``rois/boxes (T, K, 4)``.
+    """
+    T, H, W, _ = frames.shape
+    det = det or skin_detector.SkinDetectorConfig()
+    if detector is None:
+        detector = lambda fr: multiface.detect_faces_multi(fr, k_faces, det)
+    b_sub, v_sub = detector(frames[::detect_every] if detect_every > 1
+                            else frames)
+    raw_boxes, raw_valid, attempted = _spread_cadence(
+        b_sub.to(torch.int32), v_sub, T, detect_every)
+    track = vroi.holdover_multi(raw_boxes, raw_valid,
+                                cfg.roi.landmark_hold_frames,
+                                attempted=attempted)
+    rois = vroi.measurement_roi(track.box, cfg.roi, W, H, cfg.roi_site)
+    rois = torch.where(track.valid[..., None], rois, 0)
+    means, _ = vreduce.roi_channel_means_multi(frames, rois)
+    return SignalTrace(bgr=means, valid=track.valid, rois=rois,
+                       boxes=track.box)
+
+
+def measure_green_avg_multi(frames: torch.Tensor, fps: float,
+                            k_faces: int = 2,
+                            cfg: PipelineConfig = PipelineConfig(),
+                            det: Optional[skin_detector.SkinDetectorConfig]
+                            = None,
+                            detector=None,
+                            trace: Optional[SignalTrace] = None
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-face green-channel BPM: ``(ts (T,), bpm (T, K), valid (T, K))``
+    numpy arrays, K subjects monitored from one clip.  Pass ``trace`` (from
+    :func:`extract_signals_multi`) to reuse an extraction.  Each face's
+    trace is forward-filled over its own dropouts, and the K rolling
+    estimates run as one batch over the face axis."""
+    if trace is None:
+        trace = extract_signals_multi(frames, k_faces, cfg, det, detector)
+    elif trace.bgr.shape[1] != k_faces:
+        raise ValueError(f"trace has {trace.bgr.shape[1]} face slots, "
+                         f"k_faces={k_faces}")
+    green = _fill_invalid(trace.bgr[..., cfg.channel], trace.valid)  # (T, K)
+    rolling = _rolling(green, fps, cfg)
+    return _host(fps, rolling.bpm, rolling.valid & trace.valid)
+
+
 def _fill_invalid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Carry the last valid sample forward over dropouts; leading-invalid
-    frames stay 0 (they are masked out downstream)."""
+    frames stay 0 (they are masked out downstream).  ``x`` and ``valid``
+    of one shape ``(T, K)`` fill each column over its own dropouts."""
+    if valid.dim() > 1:
+        idx = torch.arange(x.shape[0], device=x.device).reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        last = torch.cummax(torch.where(valid, idx, -1), dim=0).values
+        filled = torch.gather(x, 0, last.clamp(min=0))
+        return torch.where(last < 0, torch.zeros_like(x), filled)
     return forward_fill(x, valid, init="zeros")
 
 

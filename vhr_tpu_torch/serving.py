@@ -28,13 +28,20 @@ and advances all slots per tick:
   projections run over all ``(S, N, 3)`` BGR rings of the pool at once, and
   under ``"adaptive"`` each served line names the method behind its BPM.
 
+- **K subjects a slot.**  ``k_faces > 1`` runs the multi-face update
+  (``pipeline.live._multi_update``, the live ``step_multi`` over the slot
+  axis): the top-K skin detector over the batch on the pool's tick cadence,
+  the K-track holdover, the K ROIs' means in one read of each frame; every
+  output field gains a ``(K,)`` axis, and the front-end's JSON lines carry
+  one entry per subject.
+
 - **BGR or I420 on the wire.**  With ``transfer="i420"`` frames are ``(H*3//2,
   W)`` planar YUV 4:2:0 (``pipeline.live.bgr_to_i420_host``), half the
   bytes of BGR in the pinned upload; the tick rebuilds BGR on the card
   (``ops.color.i420_to_bgr_flat``) before the same update.
 
-Not ported yet: ``mesh=`` (ROADMAP queue 1, item 14) and ``k_faces > 1``
-(queue 1, item 12); each raises ``NotImplementedError``.
+Not ported yet: ``mesh=`` (ROADMAP queue 1, item 14), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,33 +67,33 @@ from . import interop
 from .device import resolve_device
 from .ops import color
 from .pipeline.live import (DetectorFn, LiveConfig, LiveOutput, LiveState,
-                            _check_fused, _check_method, _finish_batched,
-                            _fused_track, _skin_track, _sos, _zero_state,
-                            pack_output, unpack_output)
+                            MultiLiveState, _check_fused, _check_method,
+                            _finish_batched, _fused_track, _multi_update,
+                            _skin_track, _sos, _zero_multi_state,
+                            _zero_state, pack_output, unpack_output)
 
 __all__ = ["BpmServer", "init_state_batched", "serve_forever", "BpmClient",
            "WsBpmClient"]
 
 
 def init_state_batched(cfg: LiveConfig, n_slots: int, k_faces: int = 1,
-                       device=None) -> LiveState:
-    """A :class:`LiveState` with a leading ``(S,)`` slot axis, all zeros (a
-    zeroed slot is a fresh slot)."""
-    if k_faces != 1:
-        raise NotImplementedError(
-            "k_faces > 1 needs models/multiface.py, not yet ported (ROADMAP "
-            "queue 1, item 12)")
+                       device=None):
+    """A :class:`LiveState` (a :class:`MultiLiveState` for ``k_faces > 1``)
+    with a leading ``(S,)`` slot axis, all zeros (a zeroed slot is a fresh
+    slot)."""
+    if k_faces > 1:
+        return _zero_multi_state(cfg, (n_slots,), k_faces, device)
     return _zero_state(cfg, (n_slots,), device)
 
 
-def _step_batched_impl(state: LiveState, frames: torch.Tensor,
+def _step_batched_impl(state, frames: torch.Tensor,
                        active: torch.Tensor, reset: torch.Tensor,
                        pool_phase: int, cfg: LiveConfig,
-                       detector: Optional[DetectorFn], i420: bool = False
-                       ) -> Tuple[LiveState, torch.Tensor]:
+                       detector: Optional[DetectorFn], i420: bool = False,
+                       k_faces: int = 1) -> Tuple[LiveState, torch.Tensor]:
     """One tick: advance all S slots from their ``(S, H, W, 3)`` frames
     (``(S, H*3//2, W)`` planar I420 frames when ``i420``) -> ``(state,
-    packed (S, 10))``.
+    packed (S, 10))``, or ``(S, K, 10)`` with ``k_faces > 1``.
 
     - ``reset[s]``: zero slot s's state first (a client just attached).
     - ``active[s]``: slot s received a frame this tick; an inactive slot
@@ -101,13 +108,18 @@ def _step_batched_impl(state: LiveState, frames: torch.Tensor,
     if i420:
         h, w = frames.shape[1] * 2 // 3, frames.shape[2]
         frames = color.i420_to_bgr_flat(frames, h, w).reshape(S, h, w, 3)
-    state = LiveState(*(torch.where(
+    state = type(state)(*(torch.where(
         reset.reshape((S,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
         for x in state))
+    pool_attempt = pool_phase % cfg.detect_every == 0
+    if k_faces > 1:
+        new_state, out = _multi_update(state, frames, active & pool_attempt,
+                                       active, cfg, k_faces, detector,
+                                       pool_attempt)
+        return new_state, pack_output(out)
     if cfg.use_fused:
         parts = _fused_track(state, frames, active, cfg)
     else:
-        pool_attempt = pool_phase % cfg.detect_every == 0
         parts = _skin_track(state, frames, active & pool_attempt, active,
                             cfg, detector, pool_attempt)
     new_state, out = _finish_batched(state, cfg, _sos(cfg), active, *parts)
@@ -134,7 +146,10 @@ class BpmServer:
     3)`` uint8 BGR numpy arrays or tensors (``(H*3//2, W)`` planar I420
     with ``transfer="i420"``); the state lives on ``device``:
     the CUDA card by default (raises without one), the CPU only with
-    ``device="cpu"``.
+    ``device="cpu"``.  ``k_faces > 1``: every slot monitors K subjects
+    (``use_fused=False``), its outputs gain a ``(K,)`` axis, and
+    ``detector`` follows the multi-face contract (``frames -> (boxes (S, K,
+    4), valid (S, K))``).
     """
 
     def __init__(self, cfg: LiveConfig = LiveConfig(), n_slots: int = 8,
@@ -245,7 +260,8 @@ class BpmServer:
                         f"with this version (schema v2)")
                 new = {k: np.asarray(snap[f"leaf{i}"]).astype(v.dtype)
                        for i, (k, v) in enumerate(cur.items())}
-            self._state = interop.live_state_from_numpy(new, self.device)
+            self._state = interop.live_state_from_numpy(
+                new, self.device, multi=self.k_faces > 1)
             self._attached = [bool(b) for b in np.asarray(snap["attached"])]
             self._needs_reset = np.asarray(snap["needs_reset"]).copy()
             self._tick_count = int(snap["tick_count"])
@@ -281,7 +297,8 @@ class BpmServer:
                 self.device, non_blocking=True)
             self._state, packed = _step_batched_impl(
                 self._state, batch, masks[0], masks[1], self._tick_count,
-                self.cfg, self._detector, self.transfer == "i420")
+                self.cfg, self._detector, self.transfer == "i420",
+                self.k_faces)
             self._tick_count += 1
         return (list(frames), packed)
 
@@ -351,6 +368,7 @@ class BpmServer:
 #   server -> client:  {"slot": k} on accept (or {"error": ...} + hangup),
 #                      then one JSON line per processed frame:
 #       {"seq": k, "bpm": f, "bpm_valid": b, "face_valid": b, "box": [4]}
+#       (k_faces > 1 pools send lists: one entry per monitored subject)
 # ---------------------------------------------------------------------------
 
 
@@ -475,19 +493,27 @@ class _BpmTCPServer(socketserver.ThreadingTCPServer):
             st["frames"] += len(outs)
             st["tick_ms_ema"] = (dt_ms if st["ticks"] == 1 else
                                  0.95 * st["tick_ms_ema"] + 0.05 * dt_ms)
-            # (The JAX pool's k_faces > 1 lists have no port pool to come
-            # from yet.)
+            multi = self.pool.k_faces > 1
             for c in outs_for:
                 o = outs[c.slot]
-                msg = {"seq": c.seq, "bpm": round(float(o.bpm), 4),
-                       "bpm_valid": bool(o.bpm_valid),
-                       "face_valid": bool(o.face_valid),
-                       "box": [int(x) for x in np.asarray(o.box)]}
+                if multi:   # one entry per monitored subject (K,)
+                    msg = {"seq": c.seq,
+                           "bpm": np.round(np.asarray(o.bpm), 4).tolist(),
+                           "bpm_valid": np.asarray(o.bpm_valid).tolist(),
+                           "face_valid": np.asarray(o.face_valid).tolist(),
+                           "box": np.asarray(o.box).tolist()}
+                else:
+                    msg = {"seq": c.seq, "bpm": round(float(o.bpm), 4),
+                           "bpm_valid": bool(o.bpm_valid),
+                           "face_valid": bool(o.face_valid),
+                           "box": [int(x) for x in np.asarray(o.box)]}
                 if self.pool.cfg.method == "adaptive":
                     # Which pulse construction (an index into
                     # cfg.adaptive_methods) won this tick.
-                    msg["method"] = self.pool.cfg.adaptive_methods[
-                        int(o.choice)]
+                    ms = self.pool.cfg.adaptive_methods
+                    ch = np.asarray(o.choice)
+                    msg["method"] = ([ms[int(k)] for k in ch.ravel()]
+                                     if multi else ms[int(ch)])
                 line = json.dumps(msg) + "\n"
                 c.seq += 1
                 with c.wlock:

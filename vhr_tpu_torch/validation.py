@@ -10,6 +10,10 @@ greens, so their difference is the DSP's, and the same estimator fed by the
 ground-truth face boxes' ROI isolates the detector's error.
 ``chip_smoke.py`` holds the port's BPM against the reference on the port's
 own green trace.
+
+:func:`main` (``python -m vhr_tpu_torch.validation [--device cpu]``)
+writes the port's table to ``VALIDATION_TORCH.md`` in the working
+directory, never the JAX package's ``VALIDATION.md``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,11 @@ import numpy as np
 from .config import BAND_ANALYSIS, HRBand, PipelineConfig
 from .utils.synth import SynthSpec, synthesize
 
-__all__ = ["cpu_reference_green_avg", "validate_green_avg"]
+__all__ = ["cpu_reference_green_avg", "validate_green_avg",
+           "DEFAULT_SPECS", "main"]
+
+# The port's table; the JAX package's is VALIDATION.md.
+OUTPUT = "VALIDATION_TORCH.md"
 
 
 def cpu_reference_green_avg(green: np.ndarray, fps: float,
@@ -112,3 +120,84 @@ def validate_green_avg(specs: List[SynthSpec],
                 [abs(port_bpm[i] - truthroi_bpm[i]) for i in idx])),
         })
     return rows
+
+
+DEFAULT_SPECS = [
+    SynthSpec(duration_s=45.0, bpm=60.0, noise_std=1.0),
+    SynthSpec(duration_s=45.0, bpm=72.0, noise_std=2.0,
+              motion_amplitude=3.0),
+    SynthSpec(duration_s=45.0, bpm=95.0, noise_std=1.0,
+              drift_amplitude=4.0),
+    SynthSpec(duration_s=45.0, bpm=130.0, noise_std=0.5),
+    SynthSpec(duration_s=45.0, bpm=72.0, noise_std=1.0,
+              hr_drift_bpm=10.0),
+]
+
+
+def main(argv=None) -> int:
+    """Validate the port on :data:`DEFAULT_SPECS` (the JAX package's five
+    clips) and write the table to ``VALIDATION_TORCH.md`` in the working
+    directory.  Exit code 0 when the worst MAE against the CPU reference is
+    at most 0.5 BPM, as the JAX package's ``main``."""
+    import argparse
+
+    import torch
+
+    from .device import resolve_device
+
+    p = argparse.ArgumentParser(
+        description="The port's green-channel measure against the "
+                    "frame-at-a-time CPU reference")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "on the host)")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "the CPU")
+    rows = validate_green_avg(DEFAULT_SPECS, device=dev)
+    lines = [
+        "# VALIDATION_TORCH: the PyTorch port against the CPU reference",
+        "",
+        f"Written by `python -m vhr_tpu_torch.validation`; the port ran on "
+        f"{name} (`{dev}`).",
+        "",
+        "Green-channel (green_avg) pipeline on synthetic clips with known",
+        "BPM, the JAX package's `validation.main` table for the port:",
+        "",
+        "- **MAE vs CPU ref**: both pipelines consume the same per-frame ROI",
+        "  greens, so this is the DSP's difference (windowing, FFT, band",
+        "  mask, peak pick), not the detector's.",
+        "- **det-vs-truth-ROI**: the same estimator fed by the detector's",
+        "  ROI against the ground-truth face box's ROI: the error the",
+        "  detector brings into the loop.",
+        "- **vs truth**: absolute accuracy, estimator limits included.",
+        "",
+        "(Target: MAE <= 0.5 BPM against the CPU reference.)",
+        "",
+        "| clip | frames | MAE vs CPU ref | det-vs-truth-ROI "
+        "| port vs truth | CPU ref vs truth |",
+        "|---|---|---|---|---|---|",
+    ]
+    worst = 0.0
+    for r in rows:
+        s = r["spec"]
+        label = (f"{s['bpm']:g}bpm n{s['noise_std']:g} "
+                 f"m{s['motion_amplitude']:g} d{s['hr_drift_bpm']:g}")
+        lines.append(
+            f"| {label} | {r['frames_compared']} | "
+            f"{r['mae_tpu_vs_cpu_reference']:.4f} | "
+            f"{r['mae_detector_vs_truth_roi']:.4f} | "
+            f"{r['mae_tpu_vs_truth']:.2f} | "
+            f"{r['mae_cpu_reference_vs_truth']:.2f} |")
+        worst = max(worst, r["mae_tpu_vs_cpu_reference"])
+    lines += ["", f"Worst-case MAE vs CPU reference: **{worst:.4f} BPM** "
+              f"(target <= 0.5)."]
+    with open(OUTPUT, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print("\n".join(lines))
+    return 0 if worst <= 0.5 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
