@@ -113,6 +113,27 @@ Phases, each of which must pass (any failure exits non-zero):
    and detection alone, fused and unfused, the card's busy share in one
    profiled run of the fused measure; K5 per stage, its plain version and
    the same 25 ops unfused (cuDNN, op by op);
+8b. the rest of the MediaPipe family.  Two of phase 8's faces side by
+   side at 1080p (360 frames, 60 and 96 BPM, made on the card from a
+   seed) through ``measure_green_avg_multi`` with
+   ``make_mediapipe_detector_multi(k_faces=2)``: K5 launched, each face
+   >= 95% valid after the acquisition (10 s windows) with its last valid
+   BPM within 8 BPM of its rate, the boxes in x-order; K5 against its plain
+   version at the batch that detector gives it (B=128: two crops a frame,
+   slices of 64), float32 and bfloat16 with phase 8's bounds, and its time
+   there.  ``extract_signals_landmark_roi`` with
+   ``make_mediapipe_roi_detector()`` and ``extract_signals_polygon`` with
+   ``make_mediapipe_poly_detector()`` on phase 8's clip: K5 launched, >= 95%
+   valid after the acquisition, BPM MAE at most 0.5 against the numpy
+   reference on the port's own trace; the polygon path's peak device memory
+   above the clip logged and under an eighth of the clip's float32 size.
+   ``rppg_video --faces 2 --detector mediapipe`` on the two-face clip as
+   MJPG (K5 launched, each face within 8 BPM, x-order);
+   ``LivePipeline(k_faces=2)`` with the K=2 detector and a 4-slot
+   ``BpmServer(k_faces=2)`` with it (two slots mirrored) on two faces at
+   720p for 600 frames and ticks (a live stream's BPM settles once its
+   500-sample ring holds no start-up transient): K5 launched, every subject
+   valid within 8 BPM at the end.  Each check's time is logged;
 9. the live pipeline: one 720p subject of the pool's population, 760
    frames, ``LiveConfig(fps=30, use_fused=True)``, through ``LivePipeline``
    on the card in four modes (BGR, I420 frames from ``bgr_to_i420_host``,
@@ -219,7 +240,7 @@ Phases, each of which must pass (any failure exits non-zero):
 The launch counters are set to 0 just before each of the main paths (the
 offline measure, each call of the other measures, each stream and the
 file measure, ``magnify``, the EVM measure, the MediaPipe measure, each
-mode of the live pipeline, the fused pool, the skin pool, the adaptive
+path of phase 8b, each mode of the live pipeline, the fused pool, the skin pool, the adaptive
 pool, the I420 pool pair, the servers, the live app, each analysis
 sweep, each path of phase 14) and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
@@ -228,8 +249,10 @@ other measures' fused calls, the 4-decoder stream and the fused I420
 stream, K2's in the offline run, the other measures' ``"roi"`` calls, the
 MediaPipe measure and the skin pool, K3's in the detect stream, K4's in the
 fused and the adaptive pool, the live pipeline's four modes and the I420
-pool pair, K5's in the MediaPipe measure, the MediaPipe sweep and the
-video app's ``--detector mediapipe``, K6's in ``magnify``, the EVM
+pool pair, K5's in the MediaPipe measure, phase 8b's six paths (the
+K=2 measure, the pose-robust and polygon measures, the video app with
+``--faces 2``, the live pipeline and the pool with the K=2 detector), the
+MediaPipe sweep and the video app's ``--detector mediapipe``, K6's in ``magnify``, the EVM
 measure, the degradation sweep and ``evm_magnify``, K7's in ``magnify``
 and ``evm_magnify``; K1's also ``entry()``'s.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
@@ -323,6 +346,12 @@ EXEC_TOL = {"face_detector.tflite": 2e-5,            # the JAX package's
 MP_RMS_PX = 1.5
 MP_IOU_MIN = 0.5
 MP_SINGLE_N = 8        # frames the product detector sees one a call
+# The multi-face and landmark-ROI phase: two of the MediaPipe phase's faces
+# side by side at 1080p for the K=2 measure and the video app (MPM_T
+# frames, 12 s: the app's 10 s window fills), and at 720p for the live
+# pipeline and the pool (MPM_LIVE_T frames: a live stream's BPM settles
+# once its 500-sample ring holds no start-up transient of the filter).
+MPM_T, MPM_LIVE_T = 360, 600
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, float32 operations/s on the CUDA cores, and dense TF32
 # operations/s on the tensor cores.
@@ -1592,18 +1621,19 @@ def run_streaming(dev, frames, cfg) -> dict:
     return out
 
 
-def draw_face(h: int, w: int, scale: float, cy=None):
+def draw_face(h: int, w: int, scale: float, cy=None, cx=None):
     """``tests/test_mediapipe_face.py``'s schematic face (skin ellipse,
     hair, eyes, brows, nose, mouth) drawn ``scale`` times its size centred
-    in an ``h x w`` frame (at row ``cy`` if given): ``(u8 BGR image, bool
-    skin-ellipse mask, ellipse box [x1, y1, x2, y2])``."""
+    in an ``h x w`` frame (at row ``cy`` and column ``cx`` if given): ``(u8
+    BGR image, bool skin-ellipse mask, ellipse box [x1, y1, x2, y2])``."""
     import cv2
     import numpy as np
 
     def s(v):
         return int(round(v * scale))
 
-    cx, cy, rx, ry = w // 2, h // 2 if cy is None else cy, s(55), s(75)
+    cx = w // 2 if cx is None else cx
+    cy, rx, ry = h // 2 if cy is None else cy, s(55), s(75)
     img = np.full((h, w, 3), (60, 70, 80), np.uint8)
     cv2.ellipse(img, (cx, cy), (rx, ry), 0, 0, 360, (130, 165, 200), -1)
     cv2.ellipse(img, (cx, cy - ry + s(18)), (rx - s(6), s(26)), 0, 180, 360,
@@ -1652,6 +1682,39 @@ def make_face_clip(dev, t: int, h: int, w: int, seed: int = SEED,
     return frames, boxes
 
 
+def make_face_duo(dev, t: int, h: int, w: int, scale: float,
+                  bpms=DUO_BPM, seed: int = SEED, chunk: int = 64):
+    """``(t, h, w, 3)`` u8 clip of two :func:`draw_face` faces side by side
+    (centred at a quarter and three quarters of the width) made on
+    ``dev``: each skin ellipse carries its own 2 u8 green pulse at
+    ``bpms``, both sway +-MP_SWAY px (whole pixels), 0-7 u8 of seeded
+    sensor noise."""
+    import torch
+
+    left, lmask, _ = draw_face(h, w, scale, cx=w // 4)
+    right, rmask, _ = draw_face(h, w, scale, cx=3 * w // 4)
+    img = left.copy()
+    img[:, w // 2:] = right[:, w // 2:]
+    base = torch.as_tensor(img, device=dev).to(torch.float32)
+    skins = [torch.as_tensor(m, device=dev) for m in (lmask, rmask)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.empty((t, h, w, 3), dtype=torch.uint8, device=dev)
+    ts = torch.arange(t, dtype=torch.float64) / FPS
+    dx = torch.round(MP_SWAY * torch.sin(2 * math.pi * 0.1 * ts)).long()
+    for s0 in range(0, t, chunk):
+        idx = list(range(s0, min(t, s0 + chunk)))
+        img_c = torch.stack([torch.roll(base, int(dx[i]), 1) for i in idx])
+        for skin, bpm in zip(skins, bpms):
+            on = torch.stack([torch.roll(skin, int(dx[i]), 1) for i in idx])
+            amp = (2.0 * torch.sin(2 * math.pi * bpm / 60.0 * ts[idx])).to(
+                device=dev, dtype=torch.float32)
+            img_c[..., 1] += on * amp[:, None, None]
+        img_c += torch.randint(0, 8, img_c.shape, generator=gen,
+                               device=dev).to(torch.float32)
+        frames[s0:s0 + len(idx)] = img_c.clamp(0, 255).to(torch.uint8)
+    return frames
+
+
 def box_iou(a, b):
     """IoU of corresponding ``[x1, y1, x2, y2]`` rows (float tensors)."""
     import torch
@@ -1672,6 +1735,16 @@ def k5_ops(C: int, Cm: int, S: int, n_blocks: int = 4):
     pixel for the entry PReLU."""
     convs = S * n_blocks * 4 * C * Cm
     return convs + S * (n_blocks * (21 * Cm + 4 * C) + 2 * C), convs
+
+
+def mesh_stages(params, lm_fused):
+    """The mesh net's residual stages that run on K5: ``[(stage, packed
+    weights)]`` in graph order."""
+    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+
+    return [(st, mb.StageWeights(*(params.lm[f"_fs{start}_{i}"]
+                                   for i in range(9))))
+            for start, st in sorted(lm_fused.stages.items())]
 
 
 def check_k5(x, wts, w_row: int):
@@ -1787,9 +1860,7 @@ def run_mediapipe(dev, cfg) -> dict:
     # sweep, the skin pool's 64 slots) and B = 1 (the live step's one frame
     # a call).
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    stages = [(st, mb.StageWeights(*(params.lm[f"_fs{start}_{i}"]
-                                     for i in range(9))))
-              for start, st in sorted(lm_fused.stages.items())]
+    stages = mesh_stages(params, lm_fused)
     k5_err, k5_inputs = 0.0, []
     for st, wts in stages:
         C, Hs, Ws = st["C"], st["H"], st["W"]
@@ -2008,10 +2079,264 @@ def run_mediapipe(dev, cfg) -> dict:
     log(f"[time] K5 for the run ({n_slices} slices x {len(stages)} "
         f"stages): kernel {k5['ms']:.3f} ms, plain {k5['plain']:.3f} ms, "
         f"unfused stages {k5['unfused']:.3f} ms")
-    del frames
-    return dict(launches=launches, k5_err=k5_err, k5=k5, peak=peak,
-                m_ms=m_ms, d_ms=d_ms, split=split, mae_ref=mae_ref, mae_truth=mae_truth,
-                agree=agree, rms=rms, rms_crop=rms_crop)
+    return dict(frames=frames, launches=launches, k5_err=k5_err, k5=k5,
+                peak=peak, m_ms=m_ms, d_ms=d_ms, split=split,
+                mae_ref=mae_ref, mae_truth=mae_truth, agree=agree, rms=rms,
+                rms_crop=rms_crop)
+
+
+def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
+    """The multi-face MediaPipe detector and the landmark ROI forms on the
+    card (phase 8b): the K=2 measure on a two-face 1080p clip and K5
+    against its plain version at the batch it gives K5; the pose-robust
+    and the polygon measures on the MediaPipe phase's clip ``frames``;
+    the video app with ``--faces 2 --detector mediapipe``,
+    ``LivePipeline(k_faces=2)`` and a K=2 pool with the detector.  Counters
+    from 0 before each path, read after.  Returns the K5 launches, K5's
+    error and times at B=128, and each check's time."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from vhr_tpu_torch import serving
+    from vhr_tpu_torch.apps import rppg_video
+    from vhr_tpu_torch.config import PipelineConfig
+    from vhr_tpu_torch.io import video as vio
+    from vhr_tpu_torch.models import mediapipe_face as mpf
+    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+    from vhr_tpu_torch.pipeline import live, offline
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+    out = {"launches": {}, "s": {}}
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+
+    # The K=2 path: two drawn faces side by side at 1080p, the product
+    # multi-face detector (bf16 activations, the mesh's stages on K5),
+    # the measure with the app's 10 s windows.
+    t0 = time.perf_counter()
+    duo = make_face_duo(dev, MPM_T, H, W, MP_SCALE, seed=SEED + 10)
+    det = mpf.make_mediapipe_detector_multi(k_faces=2)
+    mcfg = PipelineConfig(window_seconds=10.0, acquisition_seconds=5.0)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mb.LAUNCHES = 0
+    trace = offline.extract_signals_multi(duo, 2, mcfg, detector=det)
+    _, bpm, valid = offline.measure_green_avg_multi(duo, FPS, 2, mcfg,
+                                                    trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"]["K=2 measure"] = mb.LAUNCHES
+    expect = MPM_T - mcfg.acquisition_len(FPS) + 1
+    n_valid = valid.sum(0).tolist()
+    last = [float(bpm[np.nonzero(valid[:, k])[0][-1], k])
+            if valid[:, k].any() else math.nan for k in range(2)]
+    tv, tb = trace.valid.cpu(), trace.boxes.cpu()
+    both = tv.all(1)
+    ordered = bool((tb[both][:, 0, 2] < tb[both][:, 1, 0]).all())
+    log(f"[landmark] K=2 MediaPipe measure on {tuple(duo.shape)} (made in "
+        f"{t_make:.1f} s): {wall:.2f} s; K5 launches {mb.LAUNCHES}; "
+        f"detector valid on both faces {int(both.sum())}/{MPM_T} frames, "
+        f"boxes in x-order {ordered}; valid {n_valid} of {expect} frames "
+        f"from the end of the acquisition; last valid BPM {last} (truth "
+        f"{list(DUO_BPM)})")
+    if mb.LAUNCHES < 1 or not ordered or min(n_valid) < 0.95 * expect \
+            or not all(abs(last[k] - DUO_BPM[k]) <= BPM_TOL
+                       for k in range(2)):
+        raise AssertionError(f"K=2 MediaPipe measure: K5 {mb.LAUNCHES}, "
+                             f"x-order {ordered}, valid {n_valid} of "
+                             f"{expect}, last BPM {last}")
+    out["s"]["K=2 measure"] = wall
+    del trace
+
+    # K5 against its plain version at the batch the K=2 detector gives it
+    # (two crops a frame, slices of 64 frames), then its time there.
+    params, _, lm_fused = mpf.load_face_models(activation_dtype=bf16,
+                                               fuse_stages=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B = 2 * mpf._SLICE
+    out["k5_err"], out["k5_ms"], out["k5_bytes"] = 0.0, {}, {}
+    for st, wts in mesh_stages(params, lm_fused):
+        C, Hs, Ws = st["C"], st["H"], st["W"]
+        x = torch.randn((B, C, Hs * Ws), generator=gen, device=dev)
+        for dtype in (torch.float32, bf16):
+            err, scale = check_k5(x.to(dtype), wts, Ws)
+            out["k5_err"] = max(out["k5_err"], err)
+            log(f"[check] K5 == plain at {Hs}x{Ws} C={C} Cm={st['Cm']} x {B}"
+                f" {str(dtype)[6:]}: max |err| {err:.3g} (max|y| "
+                f"{scale:.3g})")
+        xb = x.to(bf16)
+        with torch.no_grad():
+            t_k = cuda_ms(lambda: mb.residual_stage(xb, wts, Ws), inner=20,
+                          queue_ahead=True)
+        nbytes = 2 * 2 * B * C * Hs * Ws + 4 * sum(w.numel() for w in wts)
+        ops, convs = k5_ops(C, st["Cm"], Hs * Ws)
+        b_ms, by = bound(nbytes, ops * B, convs * B)
+        out["k5_ms"][f"{Hs}x{Ws}"] = t_k
+        log(f"[time] K5 stage {Hs}x{Ws} C={C} x {B} bf16: {t_k:.4f} ms, the "
+            f"queue filled ahead; bound {b_ms:.4f} ms ({by})")
+
+    # The pose-robust ROI and the mesh polygon on the MediaPipe phase's
+    # clip, the flagship configuration.
+    acq = cfg.acquisition_len(FPS)
+    clip_f32 = frames.numel() * 4
+    for name, run, make in (
+            ("pose-robust ROI", offline.extract_signals_landmark_roi,
+             mpf.make_mediapipe_roi_detector),
+            ("polygon", offline.extract_signals_polygon,
+             mpf.make_mediapipe_poly_detector)):
+        det1 = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mb.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trace = run(frames, det1, cfg)
+        bpm_t, ok_t = offline._green_bpm(trace.bgr, trace.valid, FPS, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        out["launches"][name] = mb.LAUNCHES
+        green = offline._fill_invalid(trace.bgr[:, cfg.channel], trace.valid)
+        ref = cpu_reference_green_avg(green.cpu().numpy(), FPS,
+                                      cfg.window_seconds,
+                                      cfg.acquisition_seconds, cfg.band)
+        bpm1, ok1 = bpm_t.cpu().numpy(), ok_t.cpu().numpy()
+        n_ok = int(ok1.sum())
+        idx = [i for i in ref if ok1[i]]
+        mae = (sum(abs(float(bpm1[i]) - ref[i]) for i in idx) / len(idx)
+               if idx else math.inf)
+        roi = trace.rois[trace.valid].float()
+        side = (roi[:, 2:] - roi[:, :2]).mean(0).tolist() if len(roi) else []
+        log(f"[landmark] {name} measure on {tuple(frames.shape)}: "
+            f"{wall:.2f} s; K5 launches {mb.LAUNCHES}; detector valid "
+            f"{int(trace.valid.sum())}/{T}; valid {n_ok}/{T - acq + 1} "
+            f"frames from the end of the acquisition; BPM MAE vs numpy "
+            f"reference {mae:.4f} over {len(idx)} frames; mean ROI "
+            f"{side} px; peak device memory above the clip "
+            f"{peak / 1e9:.3f} GB (the clip in float32: "
+            f"{clip_f32 / 1e9:.1f} GB)")
+        if mb.LAUNCHES < 1 or n_ok < 0.95 * (T - acq + 1) \
+                or len(idx) < 0.95 * n_ok or mae > 0.5 \
+                or not np.isfinite(bpm1).all() or peak > clip_f32 / 8:
+            raise AssertionError(f"{name} measure: K5 {mb.LAUNCHES}, "
+                                 f"{n_ok} valid, MAE {mae}, peak {peak}")
+        out["s"][name] = wall
+        out[f"peak {name}"] = peak
+        del trace
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    try:
+        # The video app with --faces 2 --detector mediapipe on the two-face
+        # clip as MJPG.
+        t0 = time.perf_counter()
+        dpath = os.path.join(tmp_dir.name, "duo.avi")
+        vio.write_video(duo.cpu().numpy(), dpath, FPS, fourcc="MJPG")
+        del duo
+        t_write = time.perf_counter() - t0
+        kept, inner = [], rppg_video.analyze_multi
+
+        def keep(*a, **kw):
+            kept.append(inner(*a, **kw))
+            return kept[-1]
+
+        rppg_video.analyze_multi = keep
+        buf = io.StringIO()
+        mb.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = rppg_video.main([dpath, "--out-dir",
+                                      os.path.join(tmp_dir.name, "video"),
+                                      "--faces", "2", "--detector",
+                                      "mediapipe"])
+        finally:
+            rppg_video.analyze_multi = inner
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"]["rppg_video"] = mb.LAUNCHES
+        faces = dict(ln.split(" BPM: ") for ln in buf.getvalue().splitlines()
+                     if ln.startswith("face"))
+        b, v = kept[0]["boxes"], kept[0]["valid"]
+        ordered = bool((b[v.all(1)][:, 0, 2] < b[v.all(1)][:, 1, 0]).all())
+        log(f"[landmark] rppg_video --faces 2 --detector mediapipe on "
+            f"{MPM_T} frames of {W}x{H} MJPG (written in {t_write:.1f} s): "
+            f"exit {rc} in {wall:.2f} s; K5 launches {mb.LAUNCHES}; {faces}; "
+            f"both faces valid on {int(v.all(1).sum())} frames, boxes in "
+            f"x-order {ordered}")
+        if rc != 0 or mb.LAUNCHES < 1 or set(faces) != {"face0", "face1"} \
+                or not ordered or any(
+                    abs(float(faces[f"face{k}"]) - DUO_BPM[k]) > BPM_TOL
+                    for k in range(2)):
+            raise AssertionError(f"rppg_video --faces 2 mediapipe: exit "
+                                 f"{rc}, K5 {mb.LAUNCHES}, {faces}, x-order "
+                                 f"{ordered}")
+        out["s"]["rppg_video --faces 2 mediapipe"] = wall
+        del kept
+    finally:
+        tmp_dir.cleanup()
+
+    # LivePipeline(k_faces=2) and a 4-slot K=2 pool with the detector, on
+    # two faces at 720p: a live stream's BPM settles once its ring holds no
+    # start-up transient of the causal filter.
+    lduo = make_face_duo(dev, MPM_LIVE_T, PH, PW, MP_SCALE * PH / H,
+                         seed=SEED + 12)
+    lcfg = live.LiveConfig(fps=FPS)
+    host = lduo.cpu().numpy()
+    pipe = live.LivePipeline(lcfg, detector=det, k_faces=2)
+    mb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = [o for o in map(pipe.submit, host) if o is not None]
+    got.append(pipe.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"]["LivePipeline"] = mb.LAUNCHES
+    last = got[-1]
+    log(f"[landmark] LivePipeline(k_faces=2) with the MediaPipe detector on "
+        f"{MPM_LIVE_T} frames of {PW}x{PH}: {wall:.2f} s "
+        f"({MPM_LIVE_T / wall:.1f} frames/s); K5 launches {mb.LAUNCHES}; "
+        f"last BPM {last.bpm.tolist()} valid {last.bpm_valid.tolist()}")
+    if len(got) != MPM_LIVE_T or mb.LAUNCHES < 1 \
+            or not last.bpm_valid.all() or any(
+                abs(float(last.bpm[k]) - DUO_BPM[k]) > BPM_TOL
+                for k in range(2)):
+        raise AssertionError(f"LivePipeline(k_faces=2) mediapipe: K5 "
+                             f"{mb.LAUNCHES}, last {last}")
+    out["s"]["LivePipeline k_faces=2 mediapipe"] = wall
+    del host
+
+    pool = serving.BpmServer(lcfg, n_slots=DUO_SLOTS, k_faces=2,
+                             detector=det)
+    for _ in range(DUO_SLOTS):
+        pool.attach()
+    mirrored = lduo.flip(2)
+    mb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for i in range(MPM_LIVE_T):
+        outs = pool.tick({s: (lduo[i] if s < 2 else mirrored[i])
+                          for s in range(DUO_SLOTS)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"]["pool"] = mb.LAUNCHES
+    ends = {s: (outs[s].bpm.tolist(), outs[s].bpm_valid.tolist())
+            for s in range(DUO_SLOTS)}
+    want = {s: DUO_BPM if s < 2 else DUO_BPM[::-1] for s in range(DUO_SLOTS)}
+    log(f"[landmark] pool k_faces=2 with the MediaPipe detector, {DUO_SLOTS} "
+        f"slots x {MPM_LIVE_T} ticks of {PW}x{PH}: {wall:.2f} s; K5 "
+        f"launches {mb.LAUNCHES}; last BPM and validity {ends}")
+    if mb.LAUNCHES < 1 or any(not all(ends[s][1]) or any(
+            abs(ends[s][0][k] - want[s][k]) > BPM_TOL for k in range(2))
+            for s in range(DUO_SLOTS)):
+        raise AssertionError(f"pool k_faces=2 mediapipe: K5 {mb.LAUNCHES}, "
+                             f"{ends}")
+    out["s"]["pool k_faces=2 mediapipe"] = wall
+    del lduo, mirrored, pool
+    out["s"]["phase"] = time.perf_counter() - t_phase
+    log(f"[landmark] check times ({card}): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["s"].items()))
+    return out
 
 
 def check_roi_means(fn, tag: str, cases) -> float:
@@ -3019,6 +3344,16 @@ def main() -> int:
     mp_run = run_mediapipe(dev, cfg)
     log(f"[mediapipe] phase in {time.perf_counter() - t0:.1f} s")
     launches["K5"] = mp_run["launches"]["K5"]
+
+    # 8b. The multi-face MediaPipe detector (K5 at B=128), the pose-robust
+    # and polygon measures on the MediaPipe clip, and the apps with the
+    # K=2 detector; counters from 0 before each path.
+    t0 = time.perf_counter()
+    lm_run = run_landmark_slice(dev, mp_run.pop("frames"), cfg, card)
+    log(f"[landmark] phase in {time.perf_counter() - t0:.1f} s ({card}); "
+        f"K5 launches {lm_run['launches']}")
+    launches["K5"] += sum(lm_run["launches"].values())
+    mp_run["k5_err"] = max(mp_run["k5_err"], lm_run["k5_err"])
 
     # 9. The live pipeline (K4), counters from 0 before each mode.
     t0 = time.perf_counter()

@@ -129,6 +129,41 @@ def test_video_stats_match_jax_and_cv2(shape):
                                   got.entropy.numpy())
 
 
+def _frames_1080p(content, n=2):
+    """``n`` 1080p frames of noise, of a near-flat field (128 with +-1
+    noise) or of gradients, from a seed."""
+    rng = np.random.default_rng(len(content))
+    if content == "noise":
+        return rng.integers(0, 256, (n, 1080, 1920, 3), dtype=np.uint8)
+    if content == "near_flat":
+        return (128 + rng.integers(-1, 2, (n, 1080, 1920, 3))).astype(
+            np.uint8)
+    yy, xx = np.mgrid[0:1080, 0:1920]
+    ramp = np.stack([xx * 255 // 1919, yy * 255 // 1079,
+                     (xx + yy) * 255 // 2998], -1)
+    return np.stack([np.roll(ramp, 97 * i, axis=1) for i in range(n)]
+                    ).astype(np.uint8)
+
+
+@pytest.mark.parametrize("content", ["noise", "near_flat", "gradient"])
+def test_video_stats_1080p_match_jax(content):
+    """At 1080p (2 million pixels a frame, where JAX's float32 variance
+    is furthest from exact): entropy, noise variance and NSR within
+    2.5e-7 relative of JAX's; the histograms equal."""
+    frames = _frames_1080p(content)
+    got = treduce.video_stats(torch.from_numpy(frames))
+    want = jreduce.video_stats(jnp.asarray(frames))
+    for name in ("entropy", "noise_variance", "nsr"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=2.5e-7, atol=0, err_msg=name)
+    gray = treduce.grayscale_u8(torch.from_numpy(frames))
+    np.testing.assert_array_equal(
+        treduce._histogram256(gray).numpy(),
+        np.asarray(jreduce._histogram256(jreduce.grayscale_u8(
+            jnp.asarray(frames)))))
+
+
 def test_bpp_json_matches_jax(clip_file):
     """``bpp --json``: JAX's ints, its floats within ``rtol=1e-5``."""
     rc_j, out_j = _stdout(jbpp.main, [clip_file["path"], "--json"])
@@ -284,12 +319,14 @@ def test_rppg_video_main_faces_matches_jax(duo_file, tmp_path):
 
 
 def test_rppg_video_detector_choices(clip_file, tmp_path):
-    """The choices still to port raise naming their item, and the
-    multi-face skin choice is the default chroma detector."""
+    """The choices still to port raise naming their item, the multi-face
+    skin choice is the default chroma detector, and the MediaPipe choices
+    build the multi-face MediaPipe detector."""
     assert tvideo._resolve_detector_multi("skin", 2) is None
-    for name in ("landmarker", "refined", "mediapipe"):
+    for name in ("landmarker", "refined"):
         with pytest.raises(NotImplementedError, match="item 12"):
             tvideo._resolve_detector_multi(name, 2)
+    assert callable(tvideo._resolve_detector_multi("mediapipe", 2, "cpu"))
     with pytest.raises(NotImplementedError, match="item 12"):
         tvideo.main([clip_file["path"], "--out-dir", str(tmp_path),
                      "--detector", "refined", "--device", "cpu"])

@@ -631,6 +631,18 @@ def test_k5_batch_sizes(cuda, mesh_stages, stage, B, dtype):
     _k5_check(x, wts, st["W"])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_k5_multi_face_batch(cuda, mesh_stages, stage, dtype):
+    """B=128, the batch the K=2 MediaPipe detector gives K5 (two crops a
+    frame, slices of 64 frames), at each stage with the bundled weights."""
+    st, wts = mesh_stages[stage]
+    wts = meshblocks_cuda.StageWeights(*(w.to(cuda) for w in wts))
+    x = _k5_input(128 + stage, 128, st["C"], st["H"] * st["W"], dtype, cuda)
+    _k5_check(x, wts, st["W"])
+
+
 def _random_stage(rng, C, Cm, n=4):
     """Stage weights scaled so the maps stay O(1)."""
     g = lambda *s, sc=1.0: rng.normal(0, sc, s).astype(np.float32)

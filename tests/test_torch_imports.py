@@ -142,6 +142,25 @@ def test_app_slice_modules_import_without_jax(module):
     assert out.stdout.split() == ["False", "False"]
 
 
+_LANDMARK_SLICE = ["vhr_tpu_torch.ops.polyroi", "vhr_tpu_torch.ops.roi",
+                   "vhr_tpu_torch.models.mediapipe_face",
+                   "vhr_tpu_torch.pipeline.offline"]
+
+
+@pytest.mark.parametrize("module", _LANDMARK_SLICE)
+def test_landmark_slice_modules_import_without_jax(module):
+    """Each module of the multi-face MediaPipe and landmark-ROI slice (the
+    polygon means, the landmark ROIs, the detectors, the two measures)
+    loads neither jax nor any module of ``vhr_tpu`` in a fresh
+    interpreter, on its own."""
+    code = (f"import sys; import {module}; "
+            "print('jax' in sys.modules, any(m == 'vhr_tpu' or "
+            "m.startswith('vhr_tpu.') for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
 _ANALYSIS = ["vhr_tpu_torch.analysis." + m for m in (
     "main", "context", "registry", "metrics.mae", "metrics.accuracy",
     "metrics.signals", "degradation.common", "degradation.dummy",
@@ -381,6 +400,9 @@ def _plugin(measure, path):
                                    "extract_signals_streaming",
                                    "measure_green_avg_file",
                                    "make_mediapipe_detector",
+                                   "make_mediapipe_detector_multi",
+                                   "make_mediapipe_roi_detector",
+                                   "make_mediapipe_poly_detector",
                                    "LivePipeline", "rppg_livestream",
                                    "serve_bpm", "analysis.main",
                                    "rppg_video", "bpp", "evm_magnify",
@@ -399,6 +421,12 @@ def test_entry_points_need_a_card_or_cpu(entry, monkeypatch, tmp_path):
                 lambda **kw: offline.measure_green_avg_file(path, **kw),
             "make_mediapipe_detector":
                 lambda **kw: tmp.make_mediapipe_detector(path, **kw),
+            "make_mediapipe_detector_multi":
+                lambda **kw: tmp.make_mediapipe_detector_multi(path, **kw),
+            "make_mediapipe_roi_detector":
+                lambda **kw: tmp.make_mediapipe_roi_detector(path, **kw),
+            "make_mediapipe_poly_detector":
+                lambda **kw: tmp.make_mediapipe_poly_detector(path, **kw),
             "LivePipeline": lambda **kw: live.LivePipeline(**kw),
             "rppg_livestream": _app(rppg_livestream.main, "--video", path,
                                     "--no-display"),

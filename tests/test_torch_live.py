@@ -400,3 +400,51 @@ def test_live_pipeline_matches_jax_pipeline(clip, use_fused):
     assert when == ref_when
     _assert_outputs_equal(got, ref, filt_atol=5e-4)
     assert got[-1].bpm_valid
+
+
+# -- the live step with the MediaPipe detector --------------------------------
+
+@pytest.fixture(scope="module")
+def mp_face_clip():
+    """90 frames of ``tests/test_torch_mediapipe.py``'s drawn face at 192 x
+    224, swaying +-4 px, with a 1.25 Hz green pulse on its skin."""
+    from test_torch_mediapipe import draw_face
+    img = draw_face(H=192, W=224, cx=112, cy=96, rx=45, ry=62)
+    ys, xs = np.mgrid[0:192, 0:224]
+    skin = ((xs - 112) / 45.0) ** 2 + ((ys - 96) / 62.0) ** 2 <= 1.0
+    out = []
+    for t in range(90):
+        f = img.astype(np.float32)
+        f[skin, 1] += 3.0 * np.sin(2 * np.pi * 1.25 * t / 10.0)
+        out.append(np.roll(f, int(round(4 * np.sin(t / 7.0))), axis=1))
+    return np.clip(np.stack(out), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("detect_every", [1, 3])
+def test_live_step_mediapipe_matches_jax(mp_face_clip, detect_every):
+    """The single-face live step with the MediaPipe detector (float32
+    nets), and ``LivePipeline`` with it, against ``vhr_tpu``'s step: every
+    ``LiveOutput`` field equal on every frame."""
+    from vhr_tpu.models import mediapipe_face as jmp
+    from vhr_tpu_torch.models import mediapipe_face as tmp
+    jdet = jmp.make_mediapipe_detector(tmp.default_task_path(),
+                                       activation_dtype=None)
+    tdet = tmp.make_mediapipe_detector(activation_dtype=None, device="cpu")
+    jcfg = jlive.LiveConfig(fps=10.0, detect_every=detect_every, ring_len=30)
+    jst = jlive.init_state(jcfg)
+    jstp = jlive.make_step(jcfg, donate=False, detector=jdet)
+    ref = []
+    for f in mp_face_clip:
+        jst, o = jstp(jst, jnp.asarray(f))
+        ref.append(jax.tree.map(np.asarray, o))
+    cfg = _port_cfg(jcfg)
+    st, stp = live.init_state(cfg), live.make_step(cfg, detector=tdet)
+    got = []
+    for f in mp_face_clip:
+        st, o = stp(st, torch.as_tensor(f))
+        got.append(o)
+    _assert_outputs_equal(got, ref)
+    assert _field(got, "face_valid").all() and _field(got, "bpm_valid")[-1]
+    piped, _ = _pipe_outputs(live.LivePipeline(cfg, detector=tdet,
+                                               device="cpu"), mp_face_clip)
+    _assert_outputs_equal(piped, ref)

@@ -131,9 +131,11 @@ def test_resolve_detector_choices():
             rppg_video._resolve_detector(name)
     # The skin choice's multi-face detector is the pipelines' default.
     assert rppg_video._resolve_detector_multi("skin", 2) is None
-    for name in ("mediapipe", "refined"):
+    for name in ("landmarker", "refined"):
         with pytest.raises(NotImplementedError, match="item 12"):
             rppg_video._resolve_detector_multi(name, 2)
+    assert callable(rppg_video._resolve_detector_multi("mediapipe", 2,
+                                                       device="cpu"))
     with pytest.raises(SystemExit):
         rppg_video._resolve_detector("nope")
     det = rppg_video._resolve_detector("mediapipe-bf16", device="cpu")

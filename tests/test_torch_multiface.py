@@ -265,6 +265,46 @@ def test_measure_green_avg_multi_extracts(long_duo):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("fps,detect_every", [(15.0, 1), (24.0, 3)])
+def test_three_faces_match_jax(fps, detect_every):
+    """K=3: three faces at 144 x 320, the middle one gone for 30 frames.
+    ``extract_signals_multi``'s boxes, ROIs and validity equal JAX's, and
+    ``measure_green_avg_multi``'s timestamps, validity and BPM equal on
+    every frame."""
+    trio = synthesize_multi(
+        (FaceSpec(center=(0.17, 0.45), bpm=60.0),
+         FaceSpec(center=(0.5, 0.5), bpm=84.0,
+                  dropout_frames=tuple(range(60, 90))),
+         FaceSpec(center=(0.83, 0.45), bpm=108.0)),
+        height=144, width=320, fps=fps, duration_s=12.0, noise_std=1.0)
+    kw = dict(window_seconds=6.0, acquisition_seconds=3.0)
+    want = joffline.extract_signals_multi(jnp.asarray(trio.frames), 3,
+                                          JaxPipelineConfig(**kw),
+                                          detect_every=detect_every)
+    got = offline.extract_signals_multi(torch.as_tensor(trio.frames), 3,
+                                        PipelineConfig(**kw),
+                                        detect_every=detect_every)
+    for f in ("boxes", "rois", "valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    # The held box covers 15 failed attempts: every frame's at cadence 1,
+    # every third frame's at cadence 3.
+    v = got.valid.numpy()
+    assert v[:, [0, 2]].all() and v[60:75, 1].all()
+    assert v[80:90, 1].all() == (detect_every == 3)
+    ts, bpm, ok = offline.measure_green_avg_multi(
+        torch.as_tensor(trio.frames), fps, 3, PipelineConfig(**kw),
+        trace=got)
+    jts, jbpm, jok = joffline.measure_green_avg_multi(
+        jnp.asarray(trio.frames), fps, 3, JaxPipelineConfig(**kw),
+        trace=want)
+    np.testing.assert_array_equal(ts, jts)
+    np.testing.assert_array_equal(ok, jok)
+    np.testing.assert_array_equal(bpm[ok], np.asarray(jbpm)[ok])
+    assert ok[-1].all()
+
+
 def test_extract_signals_multi_custom_detector():
     """A detector of the multi-face contract replaces the skin detector."""
     duo = _duo(**CLIPS["duo"])
@@ -572,8 +612,8 @@ def test_serve_bpm_app_faces(duo_avi):
 
 def test_multiface_config_errors():
     """``use_fused`` is single-face: the multi-face step, its maker, the
-    pipeline and the pool refuse it; the learned and MediaPipe multi-face
-    detectors are still to port."""
+    pipeline and the pool refuse it; the learned multi-face detectors are
+    still to port."""
     fused = live.LiveConfig(use_fused=True)
     st = live.init_state_multi(live.LiveConfig(), 2, device="cpu")
     with pytest.raises(ValueError, match="single-face"):
@@ -589,7 +629,7 @@ def test_multiface_config_errors():
         live.make_step_multi(live.LiveConfig(), 2, transfer="yuv")
     from vhr_tpu_torch.apps import rppg_video
     with pytest.raises(NotImplementedError, match="item 12"):
-        rppg_video._resolve_detector_multi("mediapipe", 2)
+        rppg_video._resolve_detector_multi("landmarker", 2)
     with pytest.raises(SystemExit):
         rppg_livestream.main(["--video", "x.avi", "--no-display",
                               "--faces", "2", "--fused", "--device", "cpu"])

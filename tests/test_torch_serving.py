@@ -530,7 +530,7 @@ def test_pool_unported_options_raise(kw, item):
     assert tuple(pool._state.last_box.shape) == (8, 2, 4)
     from vhr_tpu_torch.apps import rppg_video
     with pytest.raises(NotImplementedError, match=item):
-        rppg_video._resolve_detector_multi("mediapipe", kw["k_faces"])
+        rppg_video._resolve_detector_multi("landmarker", kw["k_faces"])
 
 
 def test_pool_init_and_tick_errors():

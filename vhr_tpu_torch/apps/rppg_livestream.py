@@ -16,8 +16,8 @@ Usage::
 ``--no-display`` prints the BPM trace instead of opening windows;
 ``--fused`` routes detection and the ROI means through kernel K4;
 ``--faces K`` monitors K subjects at once (the multi-face step,
-``pipeline.live.step_multi``, with the skin detector); ``--device``
-defaults to the CUDA card.
+``pipeline.live.step_multi``, with the skin detector or the MediaPipe
+multi-face detector); ``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -217,8 +217,9 @@ def main(argv=None) -> int:
                    choices=["skin", "landmarker", "landmarker-real",
                             "refined", "mediapipe", "mediapipe-bf16",
                             "mediapipe-exact"],
-                   help="single-face localization model (the reference's "
-                        "live mode is MediaPipe, rppg_LIVESTREAM.py:336); "
+                   help="face localization model (the reference's live "
+                        "mode is MediaPipe, rppg_LIVESTREAM.py:336); the "
+                        "MediaPipe choices serve one face and --faces K; "
                         "the landmarker and refined choices are not yet "
                         "ported (ROADMAP queue 1, item 12)")
     p.add_argument("--device", default=None,

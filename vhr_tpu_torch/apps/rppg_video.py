@@ -7,7 +7,8 @@ and the results are rendered on the host: an annotated output video (face
 box, cheek and forehead ROI, BPM text), a signal/BPM plot, a console trace,
 and with ``--live-panels`` the reference's in-loop signal and PSD panels,
 every trailing window's filters and Welch PSD computed in one batch.
-``--faces K`` monitors K subjects (the chroma multi-face path).
+``--faces K`` monitors K subjects (the chroma multi-face path, or the
+MediaPipe multi-face detector with ``--detector mediapipe*``).
 
 Usage::
 
@@ -19,9 +20,9 @@ Usage::
 
 ``--device`` defaults to the CUDA card.  A host without matplotlib (the
 card's machine has none) gets the video and the numbers; the PNGs are
-skipped with a line in the log.  The ``landmarker``, ``landmarker-real``
-and ``refined`` detectors, and the multi-face MediaPipe detectors, are not
-ported yet (ROADMAP queue 1, item 12).
+skipped with a line in the log.  The MediaPipe detectors serve one face
+and ``--faces K``; only the ``landmarker``, ``landmarker-real`` and
+``refined`` detectors are not ported yet (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -68,14 +69,24 @@ def _resolve_detector(name: str, device=None):
 def _resolve_detector_multi(name: str, k_faces: int, device=None):
     """CLI detector choice -> multi-face detector callable, or None for the
     skin chroma multiface detector (``models.multiface``), which the
-    pipelines use by default.  The MediaPipe multi-face detector and the
-    learned ones are not ported yet (ROADMAP queue 1, item 12)."""
+    pipelines use by default.  The MediaPipe choices build
+    ``models.mediapipe_face.make_mediapipe_detector_multi`` on ``device``
+    with the single-face choices' options; the learned detectors are not
+    ported yet (ROADMAP queue 1, item 12)."""
     if name == "skin":
         return None
-    if name in _MEDIAPIPE + _NOT_PORTED:
+    if name in _MEDIAPIPE:
+        from ..models.mediapipe_face import make_mediapipe_detector_multi
+        cd = torch.bfloat16 if name.endswith("bf16") else None
+        cm = "exact" if name.endswith("exact") else "axis"
+        return make_mediapipe_detector_multi(k_faces=k_faces,
+                                             compute_dtype=cd, crop_mode=cm,
+                                             device=device)
+    if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"the multi-face {name!r} detector ({k_faces} faces) is not yet "
-            f"ported (ROADMAP queue 1, item 12)")
+            f"the multi-face {name!r} detector ({k_faces} faces) needs "
+            f"models/landmarker.py and models/cascade.py, not yet ported "
+            f"(ROADMAP queue 1, item 12)")
     raise SystemExit(f"unknown detector {name!r} ({_CHOICES})")
 
 
@@ -420,9 +431,10 @@ def main(argv=None) -> int:
                             "refined", "mediapipe", "mediapipe-bf16",
                             "mediapipe-exact"],
                    help="face localization: weight-free skin chroma "
-                        "(fastest) or the bundled MediaPipe FaceLandmarker; "
-                        "the landmarker and refined choices are not yet "
-                        "ported (ROADMAP queue 1, item 12)")
+                        "(fastest) or the bundled MediaPipe FaceLandmarker, "
+                        "one face or --faces K; the landmarker and refined "
+                        "choices are not yet ported (ROADMAP queue 1, item "
+                        "12)")
     p.add_argument("--detect-every", type=int, default=1, metavar="N",
                    help="run face detection every N frames, holdover "
                         "tracking in between")

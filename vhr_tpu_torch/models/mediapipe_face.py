@@ -24,8 +24,15 @@ bit-exact with it).
 
 The nets and the full-resolution casts run over the frames in slices of
 ``_SLICE`` frames, which bounds device memory (a bf16 copy of 960 1080p
-frames alone is 12 GB).  With ``fuse_stages`` the mesh net's four residual
+frames alone is 12 GB); with K faces a frame the mesh net takes ``K *
+_SLICE`` crops a slice.  With ``fuse_stages`` the mesh net's four residual
 stages run on kernel K5.
+
+Four detectors share the stages: the single-face box
+(:func:`make_mediapipe_detector`), K faces in x-order
+(:func:`make_mediapipe_detector_multi`), the cheek ROI carved in the face's
+rolled frame (:func:`make_mediapipe_roi_detector`) and the ring of mesh
+vertices the polygon measure reads (:func:`make_mediapipe_poly_detector`).
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ import torch
 from ..device import float32_exact, resolve_device
 
 __all__ = ["blazeface_anchors", "load_face_models", "detect_faces_mp",
-           "face_landmarks", "make_mediapipe_detector", "default_task_path",
+           "face_landmarks", "make_mediapipe_detector",
+           "make_mediapipe_detector_multi", "make_mediapipe_roi_detector",
+           "make_mediapipe_poly_detector", "default_task_path",
            "MediaPipeFaceParams"]
 
 _MIN_DET_SCORE = 0.5          # TensorsToDetections min_score_thresh
@@ -420,16 +429,115 @@ def _landmarks_to_bbox(lm_px: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return torch.stack([x1, y1, x2, y2], dim=-1).to(torch.int32)
 
 
-def _detect_single(params: MediaPipeFaceParams, det_apply, lm_apply,
-                   frames: torch.Tensor, crop_mode: str = "axis"):
+def _detect_multi(params: MediaPipeFaceParams, det_apply, lm_apply,
+                  k_faces: int, frames: torch.Tensor,
+                  crop_mode: str = "axis"):
+    """K faces a frame: ``(boxes (T, K, 4) int32, valid (T, K))``, the valid
+    faces first in the order of their ``x1`` (a stable sort: equal ``x1``
+    keep the detector's order), invalid slots zeroed."""
+    T, H, W, _ = frames.shape
+    rects, _, det_ok = detect_faces_mp(params, det_apply, frames,
+                                       k_faces=k_faces)
+    lm_px, presence = face_landmarks(params, lm_apply, frames, rects,
+                                     crop_mode=crop_mode)
+    boxes = _landmarks_to_bbox(lm_px, H, W)               # (T, K, 4)
+    valid = det_ok & (presence >= _MIN_PRESENCE)
+    key = torch.where(valid, boxes[..., 0], W + 1)
+    order = torch.argsort(key, dim=1, stable=True)
+    boxes = torch.take_along_dim(boxes, order[..., None], dim=1)
+    valid = torch.take_along_dim(valid, order, dim=1)
+    boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    return boxes, valid
+
+
+def _rotated_cheek_roi(lm_px: torch.Tensor, rot: torch.Tensor,
+                       horizontal: float, top: float, bottom: float,
+                       W: int, H: int) -> torch.Tensor:
+    """Cheek ROI carved in the face's own (rolled) frame.
+
+    The landmark cloud ``lm_px (..., 478, 2)`` is rotated by ``-rot`` (the
+    detector's eye-line roll, ``(...)`` radians) into the face's frame; the
+    ratio rectangle is carved from its min/max box there, its four corners
+    are rotated back, and their axis-aligned box is returned, truncated
+    toward zero and clipped: ``x1``/``y1`` to ``[0, W - 1]``/``[0, H -
+    1]``, ``x2``/``y2`` to ``W``/``H``.  Returns ``(..., 4)`` int32.
+    """
+    c, s = torch.cos(rot)[..., None], torch.sin(rot)[..., None]
+    px = lm_px[..., 0] * c + lm_px[..., 1] * s
+    py = -lm_px[..., 0] * s + lm_px[..., 1] * c
+    x1, x2 = px.amin(-1), px.amax(-1)
+    y1, y2 = py.amin(-1), py.amax(-1)
+    w, h = x2 - x1, y2 - y1
+    lx1, lx2 = x1 + horizontal * w, x2 - horizontal * w
+    ly1, ly2 = y1 + top * h, y1 + bottom * h
+    cx = torch.stack([lx1, lx2, lx1, lx2], dim=-1)
+    cy = torch.stack([ly1, ly1, ly2, ly2], dim=-1)
+    qx = cx * c - cy * s
+    qy = cx * s + cy * c
+    return torch.stack([qx.amin(-1).to(torch.int32).clamp(0, W - 1),
+                        qy.amin(-1).to(torch.int32).clamp(0, H - 1),
+                        qx.amax(-1).to(torch.int32).clamp(0, W),
+                        qy.amax(-1).to(torch.int32).clamp(0, H)], dim=-1)
+
+
+def _single_face(params, det_apply, lm_apply, frames, crop_mode):
+    """The one-face stages: ``(rects, landmarks (T, 478, 2), box (T, 4),
+    valid (T,))``, the box zeroed where the face is not valid."""
     T, H, W, _ = frames.shape
     rects, _, det_ok = detect_faces_mp(params, det_apply, frames, k_faces=1)
     lm_px, presence = face_landmarks(params, lm_apply, frames, rects,
                                      crop_mode=crop_mode)
-    boxes = _landmarks_to_bbox(lm_px[:, 0], H, W)
     valid = det_ok[:, 0] & (presence[:, 0] >= _MIN_PRESENCE)
+    boxes = _landmarks_to_bbox(lm_px[:, 0], H, W)
     boxes = torch.where(valid[:, None], boxes, torch.zeros_like(boxes))
+    return rects, lm_px[:, 0], boxes, valid
+
+
+def _detect_single(params: MediaPipeFaceParams, det_apply, lm_apply,
+                   frames: torch.Tensor, crop_mode: str = "axis"):
+    """``(boxes (T, 4) int32, valid (T,))``: the landmark box of one face a
+    frame, zeroed where invalid."""
+    _, _, boxes, valid = _single_face(params, det_apply, lm_apply, frames,
+                                      crop_mode)
     return boxes, valid
+
+
+def _detect_single_roi(params: MediaPipeFaceParams, det_apply, lm_apply,
+                       frames: torch.Tensor, roi_ratios,
+                       crop_mode: str = "axis"):
+    """``(boxes (T, 4), rois (T, 4), valid (T,))``: the landmark box and
+    the cheek ROI of :func:`_rotated_cheek_roi`, zeroed where invalid."""
+    _, H, W, _ = frames.shape
+    rects, lm, boxes, valid = _single_face(params, det_apply, lm_apply,
+                                           frames, crop_mode)
+    rois = _rotated_cheek_roi(lm, rects.rot[:, 0], *roi_ratios, W, H)
+    rois = torch.where(valid[:, None], rois, torch.zeros_like(rois))
+    return boxes, rois, valid
+
+
+def _detect_single_poly(params: MediaPipeFaceParams, det_apply, lm_apply,
+                        frames: torch.Tensor, poly_idx,
+                        crop_mode: str = "axis"):
+    """``(boxes (T, 4), verts (T, E, 2) float32, valid (T,))``: the
+    landmark box and the pixel positions of the mesh vertices
+    ``poly_idx``, zeroed where invalid."""
+    _, lm, boxes, valid = _single_face(params, det_apply, lm_apply, frames,
+                                       crop_mode)
+    idx = torch.as_tensor(poly_idx, dtype=torch.int64, device=lm.device)
+    verts = torch.where(valid[:, None, None], lm[:, idx, :], 0.0)
+    return boxes, verts, valid
+
+
+def _factory(task_path, compute_dtype, activation_dtype, device):
+    """The nets for a detector factory: bf16 activations by default, the
+    mesh's stages on K5 on a CUDA card (``fuse_stages="auto"``), on
+    ``device`` (the CUDA card by default)."""
+    if activation_dtype == "default":
+        activation_dtype = torch.bfloat16
+    device = resolve_device(device)
+    return device, load_face_models(
+        task_path, compute_dtype, activation_dtype=activation_dtype,
+        fuse_stages="auto", device=device)
 
 
 def make_mediapipe_detector(task_path: Optional[str] = None,
@@ -448,15 +556,77 @@ def make_mediapipe_detector(task_path: Optional[str] = None,
     (``load_face_models(fuse_stages="auto")``).  ``device`` defaults to
     the CUDA card; frames are moved there.
     """
-    if activation_dtype == "default":
-        activation_dtype = torch.bfloat16
-    device = resolve_device(device)
-    params, det_apply, lm_apply = load_face_models(
-        task_path, compute_dtype, activation_dtype=activation_dtype,
-        fuse_stages="auto", device=device)
+    device, (params, det_apply, lm_apply) = _factory(
+        task_path, compute_dtype, activation_dtype, device)
 
     def detector(frames):
         return _detect_single(params, det_apply, lm_apply,
                               torch.as_tensor(frames, device=device),
                               crop_mode=crop_mode)
+    return detector
+
+
+def make_mediapipe_detector_multi(task_path: Optional[str] = None,
+                                  k_faces: int = 2, compute_dtype=None,
+                                  crop_mode: str = "axis",
+                                  activation_dtype="default", device=None):
+    """Multi-face :func:`make_mediapipe_detector`: ``frames -> (boxes (T,
+    K, 4) int32, valid (T, K) bool)``, the valid faces in x-order, the
+    ``extract_signals_multi`` / ``step_multi`` detector contract.  The mesh
+    net runs on ``K`` crops a frame (K5 at ``K * 64`` crops a slice on a
+    CUDA card)."""
+    device, (params, det_apply, lm_apply) = _factory(
+        task_path, compute_dtype, activation_dtype, device)
+
+    def detector(frames):
+        return _detect_multi(params, det_apply, lm_apply, k_faces,
+                             torch.as_tensor(frames, device=device),
+                             crop_mode=crop_mode)
+    return detector
+
+
+def make_mediapipe_roi_detector(task_path: Optional[str] = None,
+                                compute_dtype=None, crop_mode: str = "axis",
+                                roi_cfg=None, activation_dtype="default",
+                                device=None):
+    """Pose-robust ROI variant of :func:`make_mediapipe_detector`:
+    ``frames -> (boxes (T, 4), rois (T, 4), valid (T,))``, the
+    ``pipeline.offline.extract_signals_landmark_roi`` contract; the cheek
+    ratios of ``roi_cfg`` (``ROIConfig()`` by default) are applied in the
+    face's rolled frame (:func:`_rotated_cheek_roi`)."""
+    from ..config import ROIConfig
+
+    roi_cfg = roi_cfg or ROIConfig()
+    ratios = (float(roi_cfg.cheek_horizontal), float(roi_cfg.cheek_top),
+              float(roi_cfg.cheek_bottom))
+    device, (params, det_apply, lm_apply) = _factory(
+        task_path, compute_dtype, activation_dtype, device)
+
+    def detector(frames):
+        return _detect_single_roi(params, det_apply, lm_apply,
+                                  torch.as_tensor(frames, device=device),
+                                  ratios, crop_mode=crop_mode)
+    return detector
+
+
+def make_mediapipe_poly_detector(task_path: Optional[str] = None,
+                                 compute_dtype=None, crop_mode: str = "axis",
+                                 poly_idx=None, activation_dtype="default",
+                                 device=None):
+    """Mesh-polygon variant of :func:`make_mediapipe_detector`: ``frames ->
+    (boxes (T, 4), verts (T, E, 2) float32, valid (T,))``, the
+    ``pipeline.offline.extract_signals_polygon`` contract; ``verts`` are the
+    pixel positions of the ``poly_idx`` mesh vertices (by default
+    :data:`vhr_tpu_torch.ops.polyroi.CHEEK_POLY_IDX`, the cheek band's
+    hull)."""
+    from ..ops.polyroi import CHEEK_POLY_IDX
+
+    poly_idx = tuple(poly_idx) if poly_idx is not None else CHEEK_POLY_IDX
+    device, (params, det_apply, lm_apply) = _factory(
+        task_path, compute_dtype, activation_dtype, device)
+
+    def detector(frames):
+        return _detect_single_poly(params, det_apply, lm_apply,
+                                   torch.as_tensor(frames, device=device),
+                                   poly_idx, crop_mode=crop_mode)
     return detector

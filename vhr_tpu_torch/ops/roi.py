@@ -1,7 +1,8 @@
 """ROI geometry and detection-dropout holdover as batched index math.
 
-Port of ``vhr_tpu/ops/roi.py`` (``BoxTrack``, ``roi_from_bbox``,
-``cheek_roi``, ``forehead_roi``, ``measurement_roi``, ``holdover``,
+Port of ``vhr_tpu/ops/roi.py`` (``BoxTrack``, ``bbox_from_landmarks``,
+``roi_from_bbox``, ``cheek_roi``, ``forehead_roi``, ``measurement_roi``,
+``roi_from_landmarks``, ``cheek_roi_from_landmarks``, ``holdover``,
 ``holdover_with_carry``, and the K-track ``holdover_multi``,
 ``init_multi_carry`` and ``holdover_multi_step``).  Boxes and ROIs are
 ``(..., 4)`` int32 tensors ``[x1, y1, x2, y2]``.
@@ -12,6 +13,8 @@ with ``j(t)`` the last valid index up to ``t`` (a ``cummax``) and
 ``cumsum``), frame ``t`` is valid when
 ``v | has_last & (~attempted | fails <= budget)``, where ``budget`` is
 ``hold_frames`` after a detection and the carried budget before the first.
+The held state is whatever a frame carries: a ``(T, 4)`` int32 box, or a
+``(T, 2E)`` float32 vertex ring (the polygon measure).
 
 The K-track holdover matches candidates to tracks, so it stays a step a
 frame (:func:`holdover_multi_step`), shared by the offline scan, the live
@@ -22,12 +25,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import ROIConfig
 
-__all__ = ["BoxTrack", "roi_from_bbox", "cheek_roi", "forehead_roi",
-           "measurement_roi", "holdover", "holdover_with_carry",
+__all__ = ["BoxTrack", "bbox_from_landmarks", "roi_from_bbox", "cheek_roi",
+           "forehead_roi", "measurement_roi", "roi_from_landmarks",
+           "cheek_roi_from_landmarks", "holdover", "holdover_with_carry",
            "init_holdover_carry", "holdover_multi", "init_multi_carry",
            "holdover_multi_step"]
 
@@ -37,8 +42,22 @@ HoldoverCarry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 class BoxTrack(NamedTuple):
     """Per-frame boxes with validity after dropout holdover."""
 
-    box: torch.Tensor    # (T, 4) int32 [x1, y1, x2, y2]
+    box: torch.Tensor    # (T, 4) int32 [x1, y1, x2, y2], or the held state
     valid: torch.Tensor  # (T,) bool
+
+
+def bbox_from_landmarks(landmarks: torch.Tensor, width: int, height: int
+                        ) -> torch.Tensor:
+    """Face box from normalized landmarks ``(..., L, 2)``: the min and max
+    of the cloud scaled to pixels and truncated toward zero, ``x1``/``y1``
+    clipped at 0 and ``x2``/``y2`` at ``width - 1``/``height - 1`` (the
+    reference's ``_bbox_from_landmarks``).  Returns ``(..., 4)`` int32."""
+    xs, ys = landmarks[..., 0], landmarks[..., 1]
+    x1 = (xs.amin(-1) * width).to(torch.int32).clamp(min=0)
+    y1 = (ys.amin(-1) * height).to(torch.int32).clamp(min=0)
+    x2 = (xs.amax(-1) * width).to(torch.int32).clamp(max=width - 1)
+    y2 = (ys.amax(-1) * height).to(torch.int32).clamp(max=height - 1)
+    return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
 def roi_from_bbox(bbox: torch.Tensor, horizontal: float, top: float,
@@ -83,9 +102,58 @@ def measurement_roi(bbox: torch.Tensor, cfg: ROIConfig, width: int,
     raise ValueError(f"unknown roi_site {site!r} (cheek|forehead)")
 
 
-def init_holdover_carry(device=None) -> HoldoverCarry:
-    """Fresh ``(last_box (4,) int32, budget () int32, has_last () bool)``."""
-    return (torch.zeros((4,), dtype=torch.int32, device=device),
+def roi_from_landmarks(landmarks: torch.Tensor, horizontal: float,
+                       top: float, bottom: float, width: int, height: int
+                       ) -> torch.Tensor:
+    """Pose-robust ROI from the landmark cloud ``(..., L, 2)`` (normalized
+    [x, y]): the box ratios applied in the face's own rotated frame.
+
+    The cloud samples the face boundary at uniform angles, so its first
+    circular harmonic gives the centre ``c = mean(pts)`` and the rotated
+    semi-axes ``u = (2/L) sum pts_i cos(theta_i)``, ``v = (2/L) sum pts_i
+    sin(theta_i)``.  The ratios map to local corners ``alpha = +-(1 - 2
+    horizontal)``, ``beta in [2 top - 1, 2 bottom - 1]``; the result is the
+    axis-aligned box of the four corners ``c + alpha u + beta v``, truncated
+    and clipped as :func:`roi_from_bbox`'s.  Returns ``(..., 4)`` int32
+    (exclusive ends).
+    """
+    L = landmarks.shape[-2]
+    dev = landmarks.device
+    # The harmonic's tables in float32, built in numpy as the JAX package
+    # builds them.
+    theta = 2.0 * np.pi * np.arange(L, dtype=np.float32) / L
+    cosw = torch.as_tensor(np.cos(theta), device=dev)
+    sinw = torch.as_tensor(np.sin(theta), device=dev)
+    scale = torch.tensor([width, height], dtype=torch.float32, device=dev)
+    pts = landmarks * scale                                   # pixels
+    c = pts.mean(-2)
+    u = 2.0 / L * (pts * cosw[:, None]).sum(-2)
+    v = 2.0 / L * (pts * sinw[:, None]).sum(-2)
+    alphas = np.array([-(1.0 - 2.0 * horizontal), 1.0 - 2.0 * horizontal],
+                      np.float32)
+    betas = np.array([2.0 * top - 1.0, 2.0 * bottom - 1.0], np.float32)
+    corners = torch.stack([c + float(a) * u + float(b) * v
+                           for a in alphas for b in betas], dim=-2)
+    cx, cy = corners[..., 0], corners[..., 1]
+    return torch.stack([cx.amin(-1).to(torch.int32).clamp(0, width - 1),
+                        cy.amin(-1).to(torch.int32).clamp(0, height - 1),
+                        cx.amax(-1).to(torch.int32).clamp(0, width),
+                        cy.amax(-1).to(torch.int32).clamp(0, height)],
+                       dim=-1)
+
+
+def cheek_roi_from_landmarks(landmarks: torch.Tensor, cfg: ROIConfig,
+                             width: int, height: int) -> torch.Tensor:
+    return roi_from_landmarks(landmarks, cfg.cheek_horizontal, cfg.cheek_top,
+                              cfg.cheek_bottom, width, height)
+
+
+def init_holdover_carry(device=None, shape: Tuple[int, ...] = (4,),
+                        dtype=torch.int32) -> HoldoverCarry:
+    """Fresh ``(last (shape) dtype, budget () int32, has_last () bool)``:
+    a ``(4,)`` int32 box by default, or any held state (a ``(2E,)`` float32
+    vertex ring)."""
+    return (torch.zeros(tuple(shape), dtype=dtype, device=device),
             torch.zeros((), dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.bool, device=device))
 
@@ -113,15 +181,18 @@ def holdover_with_carry(box: torch.Tensor, valid: torch.Tensor,
                         ) -> Tuple[BoxTrack, HoldoverCarry]:
     """:func:`holdover` that also returns the final carry, so a long
     recording can be processed in chunks with tracking state carried
-    across chunk boundaries."""
+    across chunk boundaries.  ``box`` is ``(T, ...)``: integer boxes are
+    held as int32, a float state (a vertex ring) in its own dtype."""
     T = box.shape[0]
     dev = box.device
+    if not box.is_floating_point():
+        box = box.to(torch.int32)
     valid = valid.to(torch.bool)
     att = (torch.ones_like(valid) if attempted is None
            else attempted.to(torch.bool))
     if carry is None:
-        carry = init_holdover_carry(dev)
-    last0 = carry[0].to(device=dev, dtype=torch.int32)
+        carry = init_holdover_carry(dev, box.shape[1:], box.dtype)
+    last0 = carry[0].to(device=dev, dtype=box.dtype)
     budget0 = carry[1].to(device=dev, dtype=torch.int64)
     has0 = carry[2].to(device=dev, dtype=torch.bool)
 
@@ -136,8 +207,8 @@ def holdover_with_carry(box: torch.Tensor, valid: torch.Tensor,
                              budget0.expand(T))
     has = seen | has0
     out_valid = valid | (has & (~att | (fails <= budget_ref)))
-    boxes = torch.where(seen[:, None], box.to(torch.int32)[j.clamp(min=0)],
-                        last0.expand(T, 4))
+    held = seen.reshape((T,) + (1,) * (box.dim() - 1))
+    boxes = torch.where(held, box[j.clamp(min=0)], last0.expand(box.shape))
 
     if T == 0:
         return BoxTrack(box=boxes, valid=out_valid), carry

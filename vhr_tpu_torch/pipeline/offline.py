@@ -30,6 +30,10 @@ on one cv2 thread or several (``n_decoders``) and stages BGR or planar I420
 subjects of one clip: the top-K skin regions a frame
 (``models.multiface``), the identity-matched K-track holdover, the K ROIs'
 means in one read of each frame, and the K rolling estimates as one batch.
+
+:func:`extract_signals_landmark_roi` and :func:`extract_signals_polygon`
+measure where a landmark detector says: a cheek ROI carved in the face's
+rolled frame, or a convex ring of mesh vertices (``ops.polyroi``).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from ..dsp.filters import forward_fill
 from ..dsp.projections import PULSES
 from ..io.video import ChunkReader
 from ..models import multiface, skin_detector
-from ..ops import color
+from ..ops import color, polyroi
 from ..ops import reduce as vreduce
 from ..ops import roi as vroi
 from ..ops import windows as vwin
@@ -62,7 +66,8 @@ __all__ = ["SignalTrace", "extract_signals", "extract_signals_fused",
            "measure_green_avg_file", "measure_projection", "AdaptiveResult",
            "adaptive_pulse_select", "measure_adaptive", "measure_ica",
            "measure_app_welch", "to_measurement_array",
-           "extract_signals_multi", "measure_green_avg_multi"]
+           "extract_signals_multi", "measure_green_avg_multi",
+           "extract_signals_landmark_roi", "extract_signals_polygon"]
 
 # A detector maps (T, H, W, 3) u8 -> ((T, 4) int32 boxes, (T,) bool valid).
 DetectorFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -192,6 +197,74 @@ def extract_signals_fused(frames: torch.Tensor,
     rois = torch.where(res.roi_valid[:, None], rois, 0)
     return SignalTrace(bgr=res.means, valid=res.roi_valid, rois=rois,
                        boxes=res.boxes)
+
+
+def _cadence_detect(frames: torch.Tensor, detector, detect_every: int):
+    """A detector of the ``frames -> (boxes, payload, valid)`` contract on
+    the cadence frames, spread over the clip: ``(boxes, payload, valid,
+    attempted)`` (:func:`_spread_cadence`)."""
+    T = frames.shape[0]
+    b_sub, p_sub, v_sub = detector(frames[::detect_every]
+                                   if detect_every > 1 else frames)
+    boxes, valid, attempted = _spread_cadence(b_sub, v_sub, T, detect_every)
+    payload, _, _ = _spread_cadence(p_sub, v_sub, T, detect_every)
+    return boxes, payload, valid, attempted
+
+
+def extract_signals_landmark_roi(frames: torch.Tensor, detector,
+                                 cfg: PipelineConfig = PipelineConfig(),
+                                 detect_every: int = 1) -> SignalTrace:
+    """Pose-robust :func:`extract_signals`: the cheek ROI comes from the
+    detector, carved from the landmark cloud in the face's rolled frame,
+    instead of the box's interior ratios.
+
+    ``detector`` maps ``frames -> (boxes (T, 4), rois (T, 4), valid (T,))``
+    (``models.mediapipe_face.make_mediapipe_roi_detector``).  The box and
+    the ROI ride separate holdovers of ``cfg.roi.landmark_hold_frames``
+    (a stale cloud's ROI is reused as its box is); ``detect_every=N``
+    detects on every N-th frame and holds both in between without draining
+    the budget.  The means are the plain masked ROI reduction.
+    """
+    boxes, rois_raw, valid, attempted = _cadence_detect(frames, detector,
+                                                        detect_every)
+    hold = cfg.roi.landmark_hold_frames
+    track_box = vroi.holdover(boxes, valid, hold, attempted=attempted)
+    track_roi = vroi.holdover(rois_raw, valid, hold, attempted=attempted)
+    rois = torch.where(track_roi.valid[:, None], track_roi.box, 0)
+    means, _ = vreduce.roi_channel_means(frames, rois)
+    return SignalTrace(bgr=means, valid=track_roi.valid, rois=rois,
+                       boxes=track_box.box)
+
+
+def extract_signals_polygon(frames: torch.Tensor, detector,
+                            cfg: PipelineConfig = PipelineConfig(),
+                            detect_every: int = 1,
+                            grid: int = 32) -> SignalTrace:
+    """Mesh-polygon :func:`extract_signals`: the means over a convex ring
+    of face-mesh vertices (``ops.polyroi.polygon_channel_means``), so
+    background and hair at the face's sides never enter them.
+
+    ``detector`` maps ``frames -> (boxes (T, 4), verts (T, E, 2), valid
+    (T,))`` (``models.mediapipe_face.make_mediapipe_poly_detector``).  The
+    box and the ring (its ``2E`` floats as the held state) ride separate
+    holdovers, as in :func:`extract_signals_landmark_roi`; ``rois`` are the
+    held ring's bounding boxes; ``grid`` is the samples per axis.
+    """
+    T, H, W, _ = frames.shape
+    boxes, verts_raw, valid, attempted = _cadence_detect(frames, detector,
+                                                         detect_every)
+    E = verts_raw.shape[1]
+    hold = cfg.roi.landmark_hold_frames
+    track_box = vroi.holdover(boxes, valid, hold, attempted=attempted)
+    track_v = vroi.holdover(verts_raw.reshape(T, 2 * E), valid, hold,
+                            attempted=attempted)
+    verts = torch.where(track_v.valid[:, None, None],
+                        track_v.box.reshape(T, E, 2), 0.0)
+    means, _ = polyroi.polygon_channel_means(frames, verts, grid=grid)
+    rois = torch.where(track_v.valid[:, None],
+                       polyroi.polygon_bbox(verts, W, H), 0)
+    return SignalTrace(bgr=means, valid=track_v.valid, rois=rois,
+                       boxes=track_box.box)
 
 
 def extract_signals_multi(frames: torch.Tensor, k_faces: int = 2,
