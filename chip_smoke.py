@@ -134,6 +134,29 @@ Phases, each of which must pass (any failure exits non-zero):
    720p for 600 frames and ticks (a live stream's BPM settles once its
    500-sample ring holds no start-up transient): K5 launched, every subject
    valid within 8 BPM at the end.  Each check's time is logged;
+8c. the learned landmarker and the cascade detectors, at the shipped
+   config (bf16, stem 48, blocks 64-384), their weights read from
+   ``checkpoints/*.npz`` through the apps' detector choices.  The
+   ``landmarker`` and ``refined`` detectors through ``measure_green_avg(
+   use_pallas="roi")`` on phase 4's clip (1080p x 960): K2 launched and
+   held bit for bit against its plain version on each measure's ROIs,
+   >= 95% valid after the acquisition, BPM MAE at most 0.5 against the
+   numpy reference on the port's own trace, the last valid BPM within 3 of
+   72, the boxes' mean IoU with the ellipse's box >= 0.8; each detector
+   alone timed.  The float32 landmarker on the card against the CPU on
+   the clip's first 16 frames (landmarks within 1e-4: no TF32), bf16
+   against float32 on the card logged.  The tiled ``landmarker`` and the
+   ``refined`` cascade through ``measure_green_avg_multi`` on two faces at
+   720p (480 frames, 60 and 96 BPM, 10 s windows): every steady frame
+   valid, each face's mean BPM error within 5.  ``LivePipeline`` with the
+   landmarker on one 720p subject for 600 frames: K2 launched, the last BPM
+   valid within 8, the submit's p50 logged.  ``landmarker-real`` on the
+   real portrait animated at 1.8x (1080 x 922, made on the host in a thread
+   started after phase 2; 600 frames with 10 s windows, cut from 960
+   because the host synthesis takes some 85 ms a frame) through the
+   same measure and gates, IoU >= 0.75 (the JAX package's real-face bar)
+   against the tracked box, and on the still portrait against the
+   MediaPipe box;
 9. the live pipeline: one 720p subject of the pool's population, 760
    frames, ``LiveConfig(fps=30, use_fused=True)``, through ``LivePipeline``
    on the card in four modes (BGR, I420 frames from ``bgr_to_i420_host``,
@@ -240,14 +263,16 @@ Phases, each of which must pass (any failure exits non-zero):
 The launch counters are set to 0 just before each of the main paths (the
 offline measure, each call of the other measures, each stream and the
 file measure, ``magnify``, the EVM measure, the MediaPipe measure, each
-path of phase 8b, each mode of the live pipeline, the fused pool, the skin pool, the adaptive
+path of phase 8b, each single-face path of phase 8c, each mode of the live pipeline, the fused pool, the skin pool, the adaptive
 pool, the I420 pool pair, the servers, the live app, each analysis
 sweep, each path of phase 14) and read just after; K2's and K3's vectorised instance must have taken
 every launch of the offline run, the detect stream, the MediaPipe measure
 and the skin pool.  The record's launches: K1's in the offline run, the
 other measures' fused calls, the 4-decoder stream and the fused I420
 stream, K2's in the offline run, the other measures' ``"roi"`` calls, the
-MediaPipe measure and the skin pool, K3's in the detect stream, K4's in the
+MediaPipe measure, phase 8c's four single-face paths (the ``landmarker``,
+``refined`` and ``landmarker-real`` measures, the live pipeline with the
+landmarker) and the skin pool, K3's in the detect stream, K4's in the
 fused and the adaptive pool, the live pipeline's four modes and the I420
 pool pair, K5's in the MediaPipe measure, phase 8b's six paths (the
 K=2 measure, the pose-robust and polygon measures, the video app with
@@ -352,6 +377,17 @@ MP_SINGLE_N = 8        # frames the product detector sees one a call
 # pipeline and the pool (MPM_LIVE_T frames: a live stream's BPM settles
 # once its 500-sample ring holds no start-up transient of the filter).
 MPM_T, MPM_LIVE_T = 360, 600
+# The learned-detector phase: the landmarker and the refined detector on
+# the flagship clip (IoU with the skin ellipse's box, the last valid BPM
+# within LEARNED_BPM_TOL); landmarker-real on the real portrait animated at
+# REAL_SCALE (1080 x 922) for REAL_T frames with 10 s windows (its host
+# synthesis takes some 85 ms a frame, so the clip is cut from 960 frames),
+# JAX's real-face IoU bar; the two-face 720p clip, each face's steady mean
+# BPM error within DUO_LEARNED_TOL; LivePipeline on LEARNED_LIVE_T frames;
+# the float32 landmarks on the card within LANDMARK_F32_TOL of the CPU's.
+LEARNED_IOU_MIN, LEARNED_BPM_TOL = 0.8, 3.0
+REAL_T, REAL_SCALE, REAL_IOU_MIN = 600, 1.8, 0.75
+DUO_LEARNED_TOL, LEARNED_LIVE_T, LANDMARK_F32_TOL = 5.0, 600, 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, float32 operations/s on the CUDA cores, and dense TF32
 # operations/s on the tensor cores.
@@ -500,16 +536,16 @@ def wall_ms(fn, reps: int = 3, inner: int = 1) -> float:
 
 
 def device_profile(fn, top: int = 8):
-    """One call of ``fn`` under ``torch.profiler``: (milliseconds the card
-    was busy, the union of its kernel, copy and set intervals; the ``top``
-    kernels by device time as ``(name, ms, calls)``).  ``(None, [])`` when
-    the profiler traced no device work."""
+    """One call of ``fn`` under ``torch.profiler``, tracing the card's
+    activity alone: (milliseconds the card was busy, the union of its
+    kernel, copy and set intervals; the ``top`` kernels by device time as
+    ``(name, ms, calls)``).  ``(None, [])`` when the profiler traced no
+    device work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans, per_name = [], {}
@@ -2339,6 +2375,263 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
     return out
 
 
+def start_real_face_clip() -> dict:
+    """Start making phase 8c's animated real portrait on the host (numpy
+    and cv2, some 85 ms a frame) in a thread, so that it is ready by phase
+    8c: a dict that gets ``"clip"`` (or ``"error"``) and ``"s"``, and holds
+    the ``"thread"``."""
+    import threading
+
+    from vhr_tpu_torch.utils import realface
+
+    real = {}
+
+    def make():
+        t0 = time.perf_counter()
+        try:
+            real["clip"] = realface.synthesize_real_face_clip(
+                bpm=TRUTH_BPM, fps=FPS, duration_s=REAL_T / FPS,
+                scale=REAL_SCALE)
+        except Exception as e:              # re-raised in phase 8c
+            real["error"] = e
+        real["s"] = time.perf_counter() - t0
+
+    real["thread"] = threading.Thread(target=make, daemon=True)
+    real["thread"].start()
+    return real
+
+
+def run_learned_slice(dev, frames, truth_boxes, cfg, card: str,
+                      real: dict) -> dict:
+    """The learned landmarker and the cascade detectors on the card (phase
+    8c), at the shipped config (bf16, stem 48, blocks 64-384): the
+    ``landmarker`` and ``refined`` detectors through ``measure_green_avg(
+    use_pallas="roi")`` on the flagship clip ``frames`` (K2 launched and
+    held against its plain version on their ROIs); ``landmarker-real`` on
+    the animated real portrait; the tiled ``landmarker`` and the
+    ``refined`` cascade through ``measure_green_avg_multi`` on a two-face
+    720p clip; ``LivePipeline`` with the landmarker on one 720p subject;
+    the float32 landmarker on the card against the CPU.  ``real`` is
+    :func:`start_real_face_clip`'s.  Counters from 0 before each single-face
+    path, read after.  Returns K2's launches and error, and each check's
+    time."""
+    import numpy as np
+    import torch
+    from vhr_tpu_torch.apps import rppg_video
+    from vhr_tpu_torch.config import PipelineConfig
+    from vhr_tpu_torch.models import landmarker as lmk
+    from vhr_tpu_torch.ops import roi_means_cuda
+    from vhr_tpu_torch.pipeline import live, offline
+    from vhr_tpu_torch.utils import realface
+    from vhr_tpu_torch.validation import cpu_reference_green_avg
+
+    out = {"launches": {}, "s": {}, "ms": {}, "k2_err": 0.0}
+    t_phase = time.perf_counter()
+
+    def measure(name, det, x, truth, mcfg, iou_min):
+        """One single-face measure with K2, its gates, K2 against its plain
+        version on the measure's ROIs; the trace."""
+        n = x.shape[0]
+        expect = n - mcfg.acquisition_len(FPS) + 1
+        roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, bpm, valid = offline.measure_green_avg(x, FPS, mcfg, detector=det,
+                                                  use_pallas="roi")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2, vec = roi_means_cuda.LAUNCHES, roi_means_cuda.VEC_LAUNCHES
+        out["launches"][name] = k2
+        trace = offline.extract_signals(x, mcfg, det, use_pallas="roi")
+        green = offline._fill_invalid(trace.bgr[:, mcfg.channel],
+                                      trace.valid)
+        ref = cpu_reference_green_avg(green.cpu().numpy(), FPS,
+                                      mcfg.window_seconds,
+                                      mcfg.acquisition_seconds, mcfg.band)
+        idx = [i for i in ref if valid[i]]
+        mae = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
+               if idx else math.inf)
+        n_valid = int(valid.sum())
+        last = (float(bpm[np.nonzero(valid)[0][-1]]) if valid.any()
+                else math.nan)
+        ok = trace.valid
+        iou = box_iou(trace.boxes[ok].float(), truth[ok].float())
+        mean_iou = float(iou.mean()) if len(iou) else 0.0
+        log(f"[learned] {name} measure on {tuple(x.shape)}: {wall:.2f} s; "
+            f"K2 launches {k2} (vectorised {vec}); "
+            f"detector valid {int(ok.sum())}/{n}; valid {n_valid}/{expect} "
+            f"frames from the end of the acquisition; last valid BPM "
+            f"{last:.3f} (truth {TRUTH_BPM:g}); BPM MAE vs numpy reference "
+            f"{mae:.4f} over {len(idx)} frames; mean IoU with the truth "
+            f"boxes {mean_iou:.4f} (min {float(iou.min()):.4f})")
+        if k2 < 1 or n_valid < 0.95 * expect or len(idx) < 0.95 * n_valid \
+                or mae > 0.5 or abs(last - TRUTH_BPM) > LEARNED_BPM_TOL \
+                or mean_iou < iou_min or not np.isfinite(bpm).all():
+            raise AssertionError(f"{name} measure: K2 {k2}, valid {n_valid}"
+                                 f" of {expect}, last BPM {last}, MAE {mae},"
+                                 f" IoU {mean_iou}")
+        out["k2_err"] = max(out["k2_err"], check_roi_means(
+            roi_means_cuda.roi_channel_means_cuda, "K2",
+            [(f"{name}", x, trace.rois, {})]))
+        out["s"][name] = wall
+        return trace
+
+    # 1. landmarker and refined on the flagship clip, through the apps'
+    # detector choices (weights from checkpoints/*.npz, on the card).
+    for name in ("landmarker", "refined"):
+        t0 = time.perf_counter()
+        det = rppg_video._resolve_detector(name)
+        log(f"[learned] {name}: weights loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        measure(name, det, frames, truth_boxes, cfg, LEARNED_IOU_MIN)
+        out["ms"][name] = cuda_ms(lambda: det(frames), reps=1)
+        log(f"[time] {name} detector alone on {tuple(frames.shape)}: "
+            f"{out['ms'][name]:.1f} ms, {out['ms'][name] / len(frames):.3f} "
+            f"ms a frame ({card})")
+
+    # 2. The float32 landmarker on the card against the CPU on the clip's
+    # first 16 frames (TF32 convolutions would miss 1e-4), and the shipped
+    # bf16 config against float32 on the card.
+    import dataclasses
+    f32 = dataclasses.replace(lmk.LandmarkerConfig(),
+                              compute_dtype=torch.float32)
+    x16 = frames[:16]
+    got = {}
+    for tag, cfg_, d in (("card f32", f32, dev), ("cpu f32", f32, "cpu"),
+                         ("card bf16", lmk.LandmarkerConfig(), dev)):
+        model = lmk.build_model(lmk.load_params(device=d), cfg_, d)
+        got[tag] = [t.cpu() for t in lmk._landmarks(model, x16.to(d))]
+    card_cpu = float((got["card f32"][0] - got["cpu f32"][0]).abs().max())
+    bf_f32 = float((got["card bf16"][0] - got["card f32"][0]).abs().max())
+    pres = float((got["card f32"][1] - got["cpu f32"][1]).abs().max())
+    log(f"[check] landmarker float32, card against CPU on 16 frames: "
+        f"landmarks max |diff| {card_cpu:.3g} (bound {LANDMARK_F32_TOL:g}), "
+        f"presence {pres:.3g}; bf16 against float32 on the card: "
+        f"landmarks max |diff| {bf_f32:.3g}")
+    if card_cpu > LANDMARK_F32_TOL:
+        raise AssertionError(f"float32 landmarks card vs CPU {card_cpu}")
+    out["landmarks card vs cpu"], out["landmarks bf16 vs f32"] = \
+        card_cpu, bf_f32
+
+    # 3. Multi-face: the tiled landmarker and the refined cascade on two
+    # faces at 720p (phase 14's geometry), 10 s windows.
+    duo = make_duo(dev, DUO_APP_T, PH, PW, seed=SEED + 14)
+    mcfg = PipelineConfig(window_seconds=10.0, acquisition_seconds=5.0)
+    steady = mcfg.window_len(FPS)
+    for name in ("landmarker", "refined"):
+        det = rppg_video._resolve_detector_multi(name, 2)
+        t0 = time.perf_counter()
+        _, bpm, valid = offline.measure_green_avg_multi(duo, FPS, 2, mcfg,
+                                                        detector=det)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = np.abs(bpm[steady:] - np.asarray(DUO_BPM)[None, :]).mean(0)
+        n_ok = valid[steady:].sum(0).tolist()
+        log(f"[learned] K=2 {name} measure on {tuple(duo.shape)}: "
+            f"{wall:.2f} s; valid {n_ok} of {DUO_APP_T - steady} steady "
+            f"frames; mean |BPM - truth| {err.tolist()} (truth "
+            f"{list(DUO_BPM)})")
+        if not valid[steady:].all() or (err > DUO_LEARNED_TOL).any():
+            raise AssertionError(f"K=2 {name}: valid {n_ok}, err {err}")
+        out["s"][f"K=2 {name}"] = wall
+    del duo
+
+    # 4. LivePipeline with the landmarker on one 720p subject.  The last
+    # step's frame and the ROIs it gave K2 are kept (a copy on the card),
+    # to hold K2 against its plain version at the live step's shape.
+    subj = Subjects(dev, 1, PH, PW, SEED + 15)
+    host = subject_frames(subj, LEARNED_LIVE_T)
+    truth_bpm = float(subj.bpm[0])
+    pipe = live.LivePipeline(live.LiveConfig(fps=FPS),
+                             detector=rppg_video._resolve_detector(
+                                 "landmarker"))
+    step_k2, last_step = live.roi_channel_means_cuda, {}
+
+    def keep_step(x, rois, **kw):
+        last_step["args"] = (x.clone(), rois.clone())
+        return step_k2(x, rois, **kw)
+
+    live.roi_channel_means_cuda = keep_step
+    roi_means_cuda.LAUNCHES = 0
+    lat, got_out = [], []
+    t0 = time.perf_counter()
+    try:
+        for f in host:
+            t1 = time.perf_counter()
+            o = pipe.submit(f)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if o is not None:
+                got_out.append(o)
+        got_out.append(pipe.flush())
+        torch.cuda.synchronize()
+    finally:
+        live.roi_channel_means_cuda = step_k2
+    wall = time.perf_counter() - t0
+    k2 = roi_means_cuda.LAUNCHES
+    out["launches"]["LivePipeline"] = k2
+    last = got_out[-1]
+    p50 = statistics.median(lat)
+    log(f"[learned] LivePipeline with the landmarker on {LEARNED_LIVE_T} "
+        f"frames of {PW}x{PH}: {wall:.2f} s, submit p50 {p50:.3f} ms a "
+        f"frame ({card}); K2 launches {k2}; last BPM {float(last.bpm):.3f} "
+        f"valid {bool(last.bpm_valid)} (truth {truth_bpm:.3f})")
+    if len(got_out) != LEARNED_LIVE_T or k2 < 1 or not bool(last.bpm_valid) \
+            or abs(float(last.bpm) - truth_bpm) > BPM_TOL:
+        raise AssertionError(f"LivePipeline landmarker: K2 {k2}, {last}")
+    x1, rois1 = last_step["args"]
+    r = rois1.tolist()
+    n1, h1, w1, c1 = x1.shape
+    plan = roi_means_cuda.roi_plan(
+        n1, h1, w1, c1, h1 * w1 * c1, w1 * c1,
+        roi_means_cuda.alignment(x1.data_ptr()),
+        roi_means_cuda.sm_count(x1.device.index or 0))
+    log(f"[learned] LivePipeline's last step gave K2 {tuple(x1.shape)} "
+        f"with ROIs {r}; its launch {plan}")
+    if not all(x1_ > x0 and y1_ > y0 for x0, y0, x1_, y1_ in r):
+        raise AssertionError(f"LivePipeline landmarker: empty ROI {r}")
+    out["k2_err"] = max(out["k2_err"], check_roi_means(
+        roi_means_cuda.roi_channel_means_cuda, "K2",
+        [("LivePipeline landmarker", x1, rois1, {})]))
+    out["s"]["LivePipeline landmarker"] = wall
+    out["live p50 ms"] = p50
+    del host
+
+    # 5. landmarker-real on the animated real portrait.
+    t0 = time.perf_counter()
+    real["thread"].join()
+    if "error" in real:
+        raise real["error"]
+    clip = real.pop("clip")
+    log(f"[learned] real portrait clip {clip.frames.shape} made on the "
+        f"host in {real['s']:.1f} s, in a thread since phase 2 (waited "
+        f"{time.perf_counter() - t0:.1f} s for it here)")
+    x = torch.from_numpy(clip.frames).to(dev)
+    truth = torch.from_numpy(clip.face_boxes).to(dev)
+    del clip
+    det = rppg_video._resolve_detector("landmarker-real")
+    rcfg = PipelineConfig(window_seconds=10.0, acquisition_seconds=5.0)
+    measure("landmarker-real", det, x, truth, rcfg, REAL_IOU_MIN)
+    import cv2
+    photo = realface.real_face_image()
+    still = cv2.resize(photo, (round(photo.shape[1] * REAL_SCALE),
+                               round(photo.shape[0] * REAL_SCALE)),
+                       interpolation=cv2.INTER_AREA)       # as the clip's
+    still = torch.from_numpy(still).to(dev)[None]
+    b, v = det(still)
+    want = torch.tensor([round(c * REAL_SCALE)
+                         for c in realface.REAL_FACE_BOX], device=dev)
+    one = float(box_iou(b.float(), want[None].float())[0])
+    log(f"[learned] landmarker-real on the still portrait at "
+        f"{REAL_SCALE}x: valid {bool(v[0])}, box {b[0].tolist()}, IoU with "
+        f"the MediaPipe box {one:.4f}")
+    if not bool(v[0]) or one < REAL_IOU_MIN:
+        raise AssertionError(f"landmarker-real on the portrait: IoU {one}")
+    del x, truth
+    out["s"]["phase"] = time.perf_counter() - t_phase
+    log(f"[learned] check times ({card}): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["s"].items()))
+    return out
+
+
 def check_roi_means(fn, tag: str, cases) -> float:
     """K2's or K3's entry ``fn`` on each ``(name, frames, rois, kwargs)``
     case, on the instance the plan takes and on the generic one: means and
@@ -3196,12 +3489,13 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
-    # 2. The clip, on the card.
+    # 2. The clip, on the card; phase 8c's real portrait starts on the host.
     t0 = time.perf_counter()
     frames, truth_boxes = make_clip(dev, T, H, W)
     torch.cuda.synchronize()
     log(f"[clip] {tuple(frames.shape)} u8 made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    real = start_real_face_clip()
 
     # 3. Kernels against their plain versions, on the card.
     cfg = PipelineConfig()
@@ -3354,6 +3648,17 @@ def main() -> int:
         f"K5 launches {lm_run['launches']}")
     launches["K5"] += sum(lm_run["launches"].values())
     mp_run["k5_err"] = max(mp_run["k5_err"], lm_run["k5_err"])
+
+    # 8c. The learned landmarker and the cascades (no repo kernel of their
+    # own; K2 takes each single-face path's ROI means): the flagship clip,
+    # the real portrait, two faces, the live pipeline; counters from 0
+    # before each single-face path.
+    t0 = time.perf_counter()
+    learned = run_learned_slice(dev, frames, truth_boxes, cfg, card, real)
+    log(f"[learned] phase in {time.perf_counter() - t0:.1f} s ({card}); "
+        f"K2 launches {learned['launches']}")
+    launches["K2"] += sum(learned["launches"].values())
+    k2_err = max(k2_err, learned["k2_err"])
 
     # 9. The live pipeline (K4), counters from 0 before each mode.
     t0 = time.perf_counter()

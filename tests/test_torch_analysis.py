@@ -408,13 +408,19 @@ def test_main_runs_on_the_cpu(workspace, port_cpu, monkeypatch, tmp_path):
     assert context.current_device() == torch.device("cpu")
 
 
-def test_main_landmarker_not_ported(workspace, port_cpu, monkeypatch,
-                                    tmp_path):
+def test_main_runs_with_the_landmarker(workspace, port_cpu, monkeypatch,
+                                       tmp_path):
+    """``--detector landmarker`` threads the learned detector to the
+    sweep's measurement, which reads the clip's pulse through it."""
     base = _dirs(monkeypatch, tmp_path, "port")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        amain.main(["--video", workspace["video"], "--methods", "green_avg",
-                    "--detector", "landmarker", "--device", "cpu",
-                    "--results-dir", str(base / "results")])
+    rc = amain.main(["--video", workspace["video"], "--methods", "green_avg",
+                     "--detector", "landmarker", "--device", "cpu",
+                     "--results-dir", str(base / "results")])
+    assert rc == 0
+    assert context.current_detector_name() == "landmarker"
+    summary = json.loads(
+        (base / "results" / "subject" / "summary.json").read_text())
+    assert summary["rows"]["original"]["green_avg"]["original"] > 100
 
 
 def test_user_plugin_file_loads(tmp_path):

@@ -319,17 +319,22 @@ def test_rppg_video_main_faces_matches_jax(duo_file, tmp_path):
 
 
 def test_rppg_video_detector_choices(clip_file, tmp_path):
-    """The choices still to port raise naming their item, the multi-face
-    skin choice is the default chroma detector, and the MediaPipe choices
-    build the multi-face MediaPipe detector."""
+    """The learned choices resolve on the CPU, one face and two, and run a
+    few frames; the multi-face skin choice is the default chroma detector,
+    the MediaPipe choices build the multi-face MediaPipe detector, and the
+    app runs end to end with ``--detector refined``."""
+    frames = torch.as_tensor(clip_file["clip"].frames[:3])
     assert tvideo._resolve_detector_multi("skin", 2) is None
-    for name in ("landmarker", "refined"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tvideo._resolve_detector_multi(name, 2)
+    for name in ("landmarker", "landmarker-real", "refined"):
+        b, v = tvideo._resolve_detector(name, "cpu")(frames)
+        assert tuple(b.shape) == (3, 4) and tuple(v.shape) == (3,), name
+        b, v = tvideo._resolve_detector_multi(name, 2, "cpu")(frames)
+        assert tuple(b.shape) == (3, 2, 4) and tuple(v.shape) == (3, 2)
     assert callable(tvideo._resolve_detector_multi("mediapipe", 2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tvideo.main([clip_file["path"], "--out-dir", str(tmp_path),
-                     "--detector", "refined", "--device", "cpu"])
+    rc, out = _stdout(tvideo.main, [clip_file["path"], "--out-dir",
+                                    str(tmp_path), "--detector", "refined",
+                                    "--device", "cpu"])
+    assert rc == 0 and "BPM Butterworth" in out
     with pytest.raises(SystemExit):
         tvideo._resolve_detector_multi("nope", 2)
 

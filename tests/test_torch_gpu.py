@@ -700,3 +700,64 @@ def test_k5_refuses_what_it_is_not_built_for(cuda, mesh_stages):
     with pytest.raises(ValueError, match="w_row"):
         meshblocks_cuda.residual_stage(
             torch.zeros(1, 16, 128, device=cuda), wts, 2)
+
+
+# -- the learned landmarker on the card (no repo kernel: cuDNN convs and
+# einsum crops, the counterpart of the JAX package's XLA convs) -----------
+
+@pytest.fixture(scope="module")
+def landmarker_frames():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    v = synthesize(SynthSpec(duration_s=16 / 30, height=216, width=384,
+                             noise_std=1.0))
+    return v.frames
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,lm_tol,box_tol", [
+    (torch.float32, 1e-4, 1), (torch.bfloat16, 1e-3, 1)])
+def test_landmarker_card_matches_cpu(landmarker_frames, dtype, lm_tol,
+                                     box_tol):
+    """The port's landmarker on the card against itself on the CPU, 16
+    frames: float32 landmarks within 1e-4 (TF32 convolutions would miss
+    it), bf16 within 1e-3; boxes within 1 px (a truncation may flip)."""
+    import dataclasses
+    from vhr_tpu_torch.models import landmarker as tlmk
+    cfg = dataclasses.replace(tlmk.LandmarkerConfig(), compute_dtype=dtype)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = tlmk.build_model(tlmk.load_params(device=dev), cfg, dev)
+        frames = torch.as_tensor(landmarker_frames, device=dev)
+        out[dev] = [t.cpu() for t in tlmk._landmarks(model, frames)]
+        det = tlmk.make_detector(model.state_dict(), cfg, device=dev)
+        out[dev] += [t.cpu() for t in det(frames)]
+    lm_c, p_c, b_c, v_c = out["cpu"]
+    lm_g, p_g, b_g, v_g = out["cuda"]
+    torch.testing.assert_close(lm_g, lm_c, rtol=0, atol=lm_tol)
+    assert torch.equal(v_g, v_c)
+    assert int((b_g - b_c).abs().max()) <= box_tol
+
+
+@pytest.mark.gpu
+def test_cascade_card_matches_cpu(landmarker_frames):
+    """The crops on the card within 1e-5 of the CPU's (full float32), and
+    the float32 tiled and refined detectors' boxes equal."""
+    import dataclasses
+    from vhr_tpu_torch.models import cascade as tcas
+    from vhr_tpu_torch.models import landmarker as tlmk
+    fr = torch.as_tensor(landmarker_frames)
+    boxes = torch.tensor([[100, 40, 260, 200]] * fr.shape[0],
+                         dtype=torch.int32)
+    c_cpu, o_cpu = tcas.crop_boxes_bilinear(fr, boxes, 96, 0.3)
+    c_gpu, o_gpu = tcas.crop_boxes_bilinear(fr.cuda(), boxes.cuda(), 96, 0.3)
+    torch.testing.assert_close(c_gpu.cpu(), c_cpu, rtol=0, atol=1e-5)
+    torch.testing.assert_close(o_gpu.cpu(), o_cpu, rtol=0, atol=0)
+    cfg = dataclasses.replace(tlmk.LandmarkerConfig(),
+                              compute_dtype=torch.float32)
+    params = tlmk.load_params(device="cpu")
+    for make in (tcas.make_tiled_detector_multi, tcas.make_refined_detector):
+        b_c, v_c = make(params, cfg, device="cpu")(fr)
+        b_g, v_g = make(params, cfg, device="cuda")(fr.cuda())
+        assert torch.equal(v_g.cpu(), v_c), make.__name__
+        assert int((b_g.cpu() - b_c).abs().max()) <= 1, make.__name__

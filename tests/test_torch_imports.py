@@ -5,6 +5,7 @@ host-side plugins and utilities) equal the originals."""
 
 import dataclasses
 import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -188,6 +189,28 @@ def test_analysis_modules_import_without_jax():
     assert out.stdout.split() == ["False", "False"]
 
 
+_LEARNED = ["vhr_tpu_torch.models.landmarker", "vhr_tpu_torch.models.cascade",
+            "vhr_tpu_torch.utils.realface", "vhr_tpu_torch.interop",
+            "vhr_tpu_torch.apps.rppg_video"]
+
+
+def test_learned_detector_modules_import_without_jax():
+    """The learned landmarker, the cascades, the real-face corpus and the
+    weight conversion load neither jax, flax, orbax nor any module of
+    ``vhr_tpu`` in a fresh interpreter, and the detectors load their
+    weights from ``checkpoints/*.npz`` with numpy alone."""
+    code = ("import importlib, sys\n"
+            f"for m in {_LEARNED!r}: importlib.import_module(m)\n"
+            "from vhr_tpu_torch.apps.rppg_video import _resolve_detector\n"
+            "for n in ('landmarker', 'landmarker-real', 'refined'):\n"
+            "    _resolve_detector(n, 'cpu')\n"
+            "print(*[any(m == p or m.startswith(p + '.') for m in "
+            "sys.modules) for p in ('jax', 'flax', 'orbax', 'vhr_tpu')])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False"] * 4
+
+
 # The port's verbatim copies of the JAX package's jax-free modules: each
 # equals its original line for line below the module docstring.
 _COPIES = ["utils/logging.py", "utils/psd_plot.py",
@@ -196,7 +219,7 @@ _COPIES = ["utils/logging.py", "utils/psd_plot.py",
            "analysis/degradation/dummy.py",
            "analysis/degradation/temporal_resolution.py",
            "analysis/degradation/crf.py", "analysis/degradation/encoding.py",
-           "analysis/measurement/dummy.py"]
+           "analysis/measurement/dummy.py", "utils/realface.py"]
 
 
 @pytest.mark.parametrize("rel", _COPIES + ["align_truth_to_measurement"])
@@ -209,8 +232,10 @@ def test_verbatim_copy_equals_jax_package(rel):
         return
 
     def body(root):
+        # A citation of the reference is compared by its path inside it.
         text = (REPO / root / rel).read_text()
-        return text.split('"""', 2)[2].splitlines()
+        return [re.sub(r"``/\S*?/reference/", "the reference's ``", line)
+                for line in text.split('"""', 2)[2].splitlines()]
 
     assert body("vhr_tpu_torch") == body("vhr_tpu")
 

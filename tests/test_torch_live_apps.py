@@ -109,31 +109,35 @@ def test_livestream_profile_trace(clip_file, tmp_path):
 
 
 def test_livestream_unported_choices_raise(clip_file, capsys):
-    """The learned detectors still raise naming item 12; ``--faces 2``
-    (item 12's skin path, ported) runs the multi-face step."""
+    """``--faces 2`` runs the multi-face step, with the skin detector and
+    with the refined cascade; ``--detector landmarker`` runs the live step
+    on the learned detector.  ``--fused`` with a detector still errors."""
     base = ["--video", clip_file["path"], "--no-display", "--device", "cpu"]
     assert rppg_livestream.main(base + ["--faces", "2", "--max-frames",
                                         "20"]) == 0
     assert "processed 20 frames" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rppg_livestream.main(base + ["--faces", "2", "--detector",
-                                     "refined"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rppg_livestream.main(base + ["--detector", "landmarker"])
+    assert rppg_livestream.main(base + ["--faces", "2", "--detector",
+                                        "refined", "--max-frames", "6"]) == 0
+    assert "processed 6 frames" in capsys.readouterr().out
+    assert rppg_livestream.main(base + ["--detector", "landmarker",
+                                        "--max-frames", "6"]) == 0
+    assert "processed 6 frames" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         rppg_livestream.main(base + ["--fused", "--detector", "mediapipe"])
 
 
 def test_resolve_detector_choices():
     assert rppg_video._resolve_detector("skin") is None
+    frame = torch.zeros((1, 64, 128, 3), dtype=torch.uint8)
     for name in ("landmarker", "landmarker-real", "refined"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            rppg_video._resolve_detector(name)
+        boxes, valid = rppg_video._resolve_detector(name, "cpu")(frame)
+        assert tuple(boxes.shape) == (1, 4) and valid.dtype == torch.bool
     # The skin choice's multi-face detector is the pipelines' default.
     assert rppg_video._resolve_detector_multi("skin", 2) is None
     for name in ("landmarker", "refined"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            rppg_video._resolve_detector_multi(name, 2)
+        boxes, valid = rppg_video._resolve_detector_multi(name, 2,
+                                                          "cpu")(frame)
+        assert tuple(boxes.shape) == (1, 2, 4) and not valid.any(), name
     assert callable(rppg_video._resolve_detector_multi("mediapipe", 2,
                                                        device="cpu"))
     with pytest.raises(SystemExit):

@@ -294,14 +294,16 @@ def duo_avi(tmp_path_factory):
 
 def test_resolve_detector_multi_mediapipe(duo):
     """The MediaPipe choices build the K-face detector with the single-face
-    choices' options; the learned detectors still raise naming item 12."""
+    choices' options; the learned choices build theirs too, each on the
+    CPU and giving K slots a frame."""
     for name in ("mediapipe", "mediapipe-bf16", "mediapipe-exact"):
         det = rppg_video._resolve_detector_multi(name, 2, device="cpu")
         b, v = det(torch.as_tensor(duo[:1]))
         assert tuple(b.shape) == (1, 2, 4) and v.all(), name
     for name in ("landmarker", "landmarker-real", "refined"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            rppg_video._resolve_detector_multi(name, 2, device="cpu")
+        det = rppg_video._resolve_detector_multi(name, 2, device="cpu")
+        b, v = det(torch.as_tensor(duo[:1]))
+        assert tuple(b.shape) == (1, 2, 4) and tuple(v.shape) == (1, 2)
 
 
 def _run(fn, argv):

@@ -612,8 +612,8 @@ def test_serve_bpm_app_faces(duo_avi):
 
 def test_multiface_config_errors():
     """``use_fused`` is single-face: the multi-face step, its maker, the
-    pipeline and the pool refuse it; the learned multi-face detectors are
-    still to port."""
+    pipeline and the pool refuse it, with a learned multi-face detector
+    too."""
     fused = live.LiveConfig(use_fused=True)
     st = live.init_state_multi(live.LiveConfig(), 2, device="cpu")
     with pytest.raises(ValueError, match="single-face"):
@@ -628,8 +628,9 @@ def test_multiface_config_errors():
     with pytest.raises(ValueError, match="transfer"):
         live.make_step_multi(live.LiveConfig(), 2, transfer="yuv")
     from vhr_tpu_torch.apps import rppg_video
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rppg_video._resolve_detector_multi("landmarker", 2)
+    det = rppg_video._resolve_detector_multi("landmarker", 2, "cpu")
+    with pytest.raises(ValueError, match="skin detector|single-face"):
+        live.LivePipeline(fused, k_faces=2, detector=det, device="cpu")
     with pytest.raises(SystemExit):
         rppg_livestream.main(["--video", "x.avi", "--no-display",
                               "--faces", "2", "--fused", "--device", "cpu"])

@@ -518,9 +518,9 @@ def test_auth_token_both_protocols(clips):
     (dict(k_faces=2), "item 12"),
 ])
 def test_pool_unported_options_raise(kw, item):
-    """``mesh=`` (item 14) still raises.  ``k_faces > 1``, item 12's skin
-    path, is ported: the pool holds the multi-face state, and the
-    multi-face detectors still to port raise naming item 12."""
+    """``mesh=`` (item 14) still raises.  ``k_faces > 1`` (item 12) is
+    ported: the pool holds the multi-face state, with the skin detector
+    and with the learned tiled detector."""
     if "mesh" in kw:
         with pytest.raises(NotImplementedError, match=item):
             serving.BpmServer(device="cpu", **kw)
@@ -529,8 +529,10 @@ def test_pool_unported_options_raise(kw, item):
     assert isinstance(pool._state, live.MultiLiveState)
     assert tuple(pool._state.last_box.shape) == (8, 2, 4)
     from vhr_tpu_torch.apps import rppg_video
-    with pytest.raises(NotImplementedError, match=item):
-        rppg_video._resolve_detector_multi("landmarker", kw["k_faces"])
+    det = rppg_video._resolve_detector_multi("landmarker", kw["k_faces"],
+                                             "cpu")
+    pool = serving.BpmServer(device="cpu", detector=det, **kw)
+    assert tuple(pool._state.last_box.shape) == (8, 2, 4)
 
 
 def test_pool_init_and_tick_errors():

@@ -10,14 +10,15 @@ Usage::
 
     python -m vhr_tpu_torch.apps.rppg_livestream [--camera 0] [--video FILE]
         [--max-frames N] [--no-display] [--fused] [--transfer bgr|i420]
-        [--faces K] [--detector skin|mediapipe[-bf16|-exact]] [--device cpu]
+        [--faces K] [--detector skin|landmarker|landmarker-real|refined|
+        mediapipe[-bf16|-exact]] [--device cpu]
 
 ``--video`` replays a file as if it were a camera (useful headless);
 ``--no-display`` prints the BPM trace instead of opening windows;
 ``--fused`` routes detection and the ROI means through kernel K4;
 ``--faces K`` monitors K subjects at once (the multi-face step,
-``pipeline.live.step_multi``, with the skin detector or the MediaPipe
-multi-face detector); ``--device`` defaults to the CUDA card.
+``pipeline.live.step_multi``, with the multi-face form of the chosen
+detector); ``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -218,10 +219,8 @@ def main(argv=None) -> int:
                             "refined", "mediapipe", "mediapipe-bf16",
                             "mediapipe-exact"],
                    help="face localization model (the reference's live "
-                        "mode is MediaPipe, rppg_LIVESTREAM.py:336); the "
-                        "MediaPipe choices serve one face and --faces K; "
-                        "the landmarker and refined choices are not yet "
-                        "ported (ROADMAP queue 1, item 12)")
+                        "mode is MediaPipe, rppg_LIVESTREAM.py:336); "
+                        "every choice serves one face and --faces K")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "on the host)")

@@ -7,22 +7,24 @@ and the results are rendered on the host: an annotated output video (face
 box, cheek and forehead ROI, BPM text), a signal/BPM plot, a console trace,
 and with ``--live-panels`` the reference's in-loop signal and PSD panels,
 every trailing window's filters and Welch PSD computed in one batch.
-``--faces K`` monitors K subjects (the chroma multi-face path, or the
-MediaPipe multi-face detector with ``--detector mediapipe*``).
+``--faces K`` monitors K subjects (the chroma multi-face path, the tiled
+learned detector with ``--detector landmarker*``, the skin-proposal cascade
+with ``--detector refined``, or the MediaPipe multi-face detector with
+``--detector mediapipe*``).
 
 Usage::
 
     python -m vhr_tpu_torch.apps.rppg_video VIDEO [--out-dir DIR] [--show]
         [--live-panels] [--faces K] [--detect-every N]
-        [--detector skin|mediapipe[-bf16|-exact]] [--profile-trace DIR]
+        [--detector skin|landmarker|landmarker-real|refined|mediapipe
+        [-bf16|-exact]] [--profile-trace DIR]
         [--device cpu]
     python -m vhr_tpu_torch.apps.rppg_video --videos-dir videos   # picker
 
 ``--device`` defaults to the CUDA card.  A host without matplotlib (the
 card's machine has none) gets the video and the numbers; the PNGs are
-skipped with a line in the log.  The MediaPipe detectors serve one face
-and ``--faces K``; only the ``landmarker``, ``landmarker-real`` and
-``refined`` detectors are not ported yet (ROADMAP queue 1, item 12).
+skipped with a line in the log.  Every detector serves one face and
+``--faces K``.
 """
 
 from __future__ import annotations
@@ -40,39 +42,51 @@ from ..io import video as vio
 from ..pipeline import offline
 
 _MEDIAPIPE = ("mediapipe", "mediapipe-bf16", "mediapipe-exact")
-_NOT_PORTED = ("landmarker", "landmarker-real", "refined")
-_CHOICES = "skin|landmarker|refined|mediapipe|mediapipe-bf16|mediapipe-exact"
+_CHOICES = ("skin|landmarker|landmarker-real|refined|mediapipe|"
+            "mediapipe-bf16|mediapipe-exact")
 _FILTERS = (("butterworth", 2), ("cheby2", 4), ("fir", 41))
 
 
 def _resolve_detector(name: str, device=None):
     """CLI detector choice -> pipeline detector callable (or None for the
-    skin detector).  The MediaPipe choices build the bundled
-    FaceLandmarker (``models.mediapipe_face.make_mediapipe_detector``) on
-    ``device`` (the CUDA card by default): ``-bf16`` rounds the convs'
-    operands to bfloat16, ``-exact`` crops with the exact rotation."""
+    skin detector), on ``device`` (the CUDA card by default).  The
+    learned choices load the landmarker's weights: ``landmarker`` the
+    synthetic-face ones, ``landmarker-real`` the real-photo-distilled ones,
+    ``refined`` the synthetic-face ones with one crop refinement pass.  The
+    MediaPipe choices build the bundled FaceLandmarker
+    (``models.mediapipe_face.make_mediapipe_detector``): ``-bf16`` rounds
+    the convs' operands to bfloat16, ``-exact`` crops with the exact
+    rotation."""
     if name == "skin":
         return None
+    if name == "landmarker":
+        from ..models.landmarker import load_default_detector
+        return load_default_detector(device=device)
+    if name == "landmarker-real":
+        from ..models.landmarker import load_real_distilled_detector
+        return load_real_distilled_detector(device=device)
+    if name == "refined":
+        from ..models.cascade import load_default_refined_detector
+        return load_default_refined_detector(device=device)
     if name in _MEDIAPIPE:
         from ..models.mediapipe_face import make_mediapipe_detector
         cd = torch.bfloat16 if name.endswith("bf16") else None
         cm = "exact" if name.endswith("exact") else "axis"
         return make_mediapipe_detector(compute_dtype=cd, crop_mode=cm,
                                        device=device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"detector {name!r} needs models/landmarker.py and "
-            f"models/cascade.py, not yet ported (ROADMAP queue 1, item 12)")
     raise SystemExit(f"unknown detector {name!r} ({_CHOICES})")
 
 
 def _resolve_detector_multi(name: str, k_faces: int, device=None):
     """CLI detector choice -> multi-face detector callable, or None for the
     skin chroma multiface detector (``models.multiface``), which the
-    pipelines use by default.  The MediaPipe choices build
-    ``models.mediapipe_face.make_mediapipe_detector_multi`` on ``device``
-    with the single-face choices' options; the learned detectors are not
-    ported yet (ROADMAP queue 1, item 12)."""
+    pipelines use by default.  On ``device`` (the CUDA card by default):
+    ``landmarker`` and ``landmarker-real`` build the fully learned tiled
+    detector (``models.cascade.make_tiled_detector_multi``) on the
+    synthetic-face or the distilled weights, ``refined`` the skin-proposal
+    cascade (``make_cascade_detector_multi``), and the MediaPipe choices
+    ``models.mediapipe_face.make_mediapipe_detector_multi`` with the
+    single-face choices' options."""
     if name == "skin":
         return None
     if name in _MEDIAPIPE:
@@ -82,11 +96,13 @@ def _resolve_detector_multi(name: str, k_faces: int, device=None):
         return make_mediapipe_detector_multi(k_faces=k_faces,
                                              compute_dtype=cd, crop_mode=cm,
                                              device=device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the multi-face {name!r} detector ({k_faces} faces) needs "
-            f"models/landmarker.py and models/cascade.py, not yet ported "
-            f"(ROADMAP queue 1, item 12)")
+    if name in ("landmarker", "landmarker-real", "refined"):
+        from ..models import cascade
+        det = _resolve_detector("landmarker-real" if name.endswith("-real")
+                                else "landmarker", device)
+        make = (cascade.make_cascade_detector_multi if name == "refined"
+                else cascade.make_tiled_detector_multi)
+        return make(det.params, det.cfg, k_faces=k_faces, device=device)
     raise SystemExit(f"unknown detector {name!r} ({_CHOICES})")
 
 
@@ -431,10 +447,10 @@ def main(argv=None) -> int:
                             "refined", "mediapipe", "mediapipe-bf16",
                             "mediapipe-exact"],
                    help="face localization: weight-free skin chroma "
-                        "(fastest) or the bundled MediaPipe FaceLandmarker, "
-                        "one face or --faces K; the landmarker and refined "
-                        "choices are not yet ported (ROADMAP queue 1, item "
-                        "12)")
+                        "(fastest), the learned landmarker (-real: the "
+                        "real-photo-distilled weights; refined: with crop "
+                        "refinement) or the bundled MediaPipe "
+                        "FaceLandmarker, one face or --faces K")
     p.add_argument("--detect-every", type=int, default=1, metavar="N",
                    help="run face detection every N frames, holdover "
                         "tracking in between")

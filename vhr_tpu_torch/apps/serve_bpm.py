@@ -18,10 +18,9 @@ it) and printing the returned BPM lines:
     python -m vhr_tpu_torch.apps.serve_bpm --connect gpuhost:7117 --video f.mp4
 
 ``--device`` places the pool (default: the CUDA card; ``cpu`` runs on the
-host).  ``--faces K`` monitors K subjects a slot with the skin detector
-or the MediaPipe multi-face detector, and the lines carry one entry per
-subject; only the ``landmarker``, ``landmarker-real`` and ``refined``
-detectors are not yet ported (ROADMAP queue 1, item 12).
+host).  ``--faces K`` monitors K subjects a slot with any detector's
+multi-face form (skin, the tiled landmarker, the refined cascade or
+MediaPipe), and the lines carry one entry per subject.
 """
 
 from __future__ import annotations
@@ -63,8 +62,8 @@ def main(argv=None) -> int:
                         "tracking holds between attempts)")
     p.add_argument("--faces", type=int, default=1,
                    help="subjects monitored per client slot (K > 1: the "
-                        "skin or the MediaPipe multi-face detector; the "
-                        "lines carry one entry per subject)")
+                        "chosen detector's multi-face form; the lines "
+                        "carry one entry per subject)")
     p.add_argument("--transfer", choices=("bgr", "i420"), default="bgr",
                    help="wire format clients must send (i420 = 2x fewer "
                         "bytes; BGR is rebuilt on the card)")

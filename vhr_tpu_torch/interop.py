@@ -6,7 +6,9 @@ nets have learned weights.  These functions turn the JAX package's versions
 of them (as numpy arrays or ``dataclasses.asdict`` dicts — this module never
 imports JAX) into the port's and back, so a stream started in one package
 can continue in the other.  The serving pool's snapshots go through
-:func:`live_state_to_numpy` and :func:`live_state_from_numpy`.
+:func:`live_state_to_numpy` and :func:`live_state_from_numpy`.  The learned
+landmarker's weights come as the flat Flax leaves of
+``tools/export_landmarker_weights.py`` (:func:`landmarker_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .config import HRBand, ROIConfig
 from .device import resolve_device
+from .models.landmarker import FaceLandmarker, LandmarkerConfig
 from .models.mediapipe_face import MediaPipeFaceParams, default_task_path
 from .models.skin_detector import SkinDetectorConfig
 from .models.tflite import load_task_models
@@ -31,7 +34,7 @@ __all__ = ["skin_config_from_jax", "fused_carry_from_numpy",
            "fused_carry_to_numpy", "holdover_carry_from_numpy",
            "holdover_carry_to_numpy", "live_config_from_jax",
            "live_state_from_numpy", "live_state_to_numpy",
-           "face_params_from_jax"]
+           "face_params_from_jax", "landmarker_params_from_jax"]
 
 # The JAX LiveState's leaf types, field by field.
 _LIVE_DTYPES = {"ring_raw": np.float32, "ring_filt": np.float32,
@@ -179,3 +182,51 @@ def face_params_from_jax(det: Mapping, lm: Mapping,
                          "detector", device),
         lm=_net_weights(models["face_landmarks_detector.tflite"].graph, lm,
                         "mesh", device))
+
+
+def _landmarker_key(path: str) -> str:
+    """A Flax leaf path of the landmarker -> its port ``state_dict`` key
+    (``block2/GroupNorm_0/scale`` -> ``blocks.2.norm.weight``)."""
+    parts = path.split("/")
+    if parts[0].startswith("block") and parts[0][5:].isdigit():
+        parts = ["blocks", parts[0][5:]] + parts[1:]
+    names = {"kernel": "weight", "scale": "weight", "GroupNorm_0": "norm"}
+    return ".".join(names.get(p, p) for p in parts)
+
+
+def landmarker_params_from_jax(leaves: Mapping,
+                               cfg: LandmarkerConfig = LandmarkerConfig(),
+                               device=None) -> Dict[str, torch.Tensor]:
+    """The JAX landmarker's params as flat leaves keyed by Flax path
+    (``stem/kernel``, ``block0/dw/kernel``, ``trunk/bias``, ...; the
+    ``.npz`` of ``tools/export_landmarker_weights.py``) -> the port's
+    :class:`FaceLandmarker` ``state_dict`` on ``device`` (the CUDA card
+    unless given).
+
+    Conv kernels go from HWIO to OIHW (a depthwise ``(3, 3, 1, C)`` kernel
+    becomes ``(C, 1, 3, 3)``), Dense kernels from ``(in, out)`` to ``(out,
+    in)``.  The trunk's rows stay in Flax's ``(h, w, c)`` flatten order,
+    which the port flattens in too.  Unknown or missing keys raise, as do
+    shapes that differ from the model's.
+    """
+    device = resolve_device(device)
+    want = {k: tuple(v.shape) for k, v in FaceLandmarker(cfg).state_dict()
+            .items()}
+    got = {_landmarker_key(k): k for k in leaves}
+    if set(got) != set(want) or len(got) != len(leaves):
+        raise ValueError(f"landmarker params differ: extra "
+                         f"{sorted(set(got) - set(want))[:8]}, missing "
+                         f"{sorted(set(want) - set(got))[:8]}")
+    out = {}
+    for key, path in got.items():
+        a = np.array(leaves[path], np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2:
+            a = a.T
+        if a.shape != want[key]:
+            raise ValueError(f"landmarker param {path} has shape "
+                             f"{np.shape(leaves[path])}, the model's "
+                             f"{key} is {want[key]}")
+        out[key] = torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return out
