@@ -16,12 +16,15 @@ Phases, each of which must pass (any failure exits non-zero):
    256-frame chunk and on rows padded to a wider pitch; K2 later also on
    the skin pool's 64 slots of 720p), each on the instance its plan takes
    and on the generic one, equal bit for bit, K1 over its knobs
-   (row pooling, detection cadence, gating, multi-stream ``seq_len``) on the
-   clip, K4 on 64 slots of 720p frames with random carries (fresh, tracked,
-   spent budgets, a cheek ROI across a row-chunk boundary, a ROI clipped at
-   the frame's right and bottom edge) and random phases over the same
-   knobs, and with a long ROI that runs into a chunk the gate leaves out;
-   integer outputs must be equal, means within ``rtol=1e-6`` (K4's equal);
+   (row pooling 1, 2, 4 and 8, detection cadence, gating, multi-stream
+   ``seq_len``) on the clip and from a base off the 16-byte grid (its
+   scalar skin pass) on the clip's first 64 frames, K4 on 64 slots of
+   720p frames with random carries (fresh, tracked, spent budgets, a
+   cheek ROI across a row-chunk boundary, a ROI clipped at the frame's
+   right and bottom edge) and random phases over the same knobs, and
+   with a long ROI that runs into a chunk the gate leaves out; integer
+   outputs must be equal, means within ``rtol=1e-6`` (K1's and K4's
+   equal);
 4. the offline green-channel measure at the flagship configuration (30 s
    window / 10 s acquisition) in both forms — fused (K1,
    ``detect_row_pool=8``) and detect-then-reduce with the K2 ROI kernel:
@@ -355,13 +358,14 @@ once, outputs written once; for the ROI kernels the ROI bytes of this run's
 boxes) over 3.35 TB/s and its operations over 67 TFLOP/s (float32 on the
 CUDA cores; K5's two 1x1 convs, which run on the tensor cores in three TF32
 passes, count once over 495 TFLOP/s, which leaves K5 bound by its bytes).
-K2's, K3's, K5's, K6's and K7's times, like K4's, are taken with the card's
-queue filled ahead (K2, K3, K6 and K7 also paced by the host, in the
-log).  No single PyTorch call computes any of these functions, so
-``library_ms`` is null (a K5 stage is 25 ops; their unfused time is logged
-beside it).  The last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA card the script exits non-zero before printing
-any result; it imports nothing of JAX or of the JAX package.
+Every kernel's time, like K4's, is taken with the card's queue filled
+ahead (K1, K2, K3, K6 and K7 also paced by the host, in the log, with
+K1's two launches under the profiler).  No single PyTorch call computes
+any of these functions, so ``library_ms`` is null (a K5 stage is 25
+ops; their unfused time is logged beside it).  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
+non-zero before printing any result; it imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -4435,19 +4439,41 @@ def main() -> int:
             ("padded random", padded, rand_rois, dict(width=W))])
     del padded
 
+    # K1 over its knobs, equal to the plain version bit for bit; the last
+    # two cases from a base off the 16-byte grid (K1's scalar skin pass and
+    # the generic K2), on the clip's first 64 frames.
     k1_err = 0.0
     configs = [dict(detect_row_pool=p, detect_every=d, gate_margin=g)
                for p in (1, 8) for d in (1, 4) for g in (None, 0.5)]
-    configs.append(dict(detect_row_pool=8, gate_margin=0.5, seq_len=480))
+    configs += [dict(detect_row_pool=8, gate_margin=0.5, seq_len=480),
+                dict(detect_row_pool=2, gate_margin=0.15),
+                dict(detect_row_pool=4, gate_margin=0.15),
+                dict(detect_row_pool=1, gate_margin=0.15, off_grid=64),
+                dict(detect_row_pool=8, gate_margin=0.15, off_grid=64)]
     for kw in configs:
+        kw = dict(kw)
+        x, buf, n_off = frames, None, kw.pop("off_grid", 0)
+        if n_off:
+            buf = torch.empty(n_off * H * W * 3 + 1, dtype=torch.uint8,
+                              device=dev)
+            x = buf[1:].view(n_off, H, W * 3)
+            x.copy_(frames[:n_off].reshape(n_off, H, W * 3))
+            assert fused_cuda.skin_instance(W * 3, x.data_ptr()) == "scalar"
         carry = fused_cuda.init_carry(dev)
-        got, got_c = fused_cuda.fused_detect_roi_carry(frames, carry, **kw)
-        want, want_c = fused_cuda.fused_detect_roi_plain(frames, carry, **kw)
+        got, got_c = fused_cuda.fused_detect_roi_carry(x, carry, **kw)
+        want, want_c = fused_cuda.fused_detect_roi_plain(x, carry, **kw)
         torch.cuda.synchronize()
-        k1_err = max(k1_err, compare(f"K1 {kw}", tuple(got) + (got_c,),
-                                     tuple(want) + (want_c,)))
-        log(f"[check] K1 == plain {kw}: det_valid {int(got.det_valid.sum())}"
-            f"/{T}, roi_valid {int(got.roi_valid.sum())}/{T}")
+        err = compare(f"K1 {kw}", tuple(got) + (got_c,),
+                      tuple(want) + (want_c,))
+        if err != 0.0:
+            raise AssertionError(f"K1 {kw}: means differ by {err}")
+        k1_err = max(k1_err, err)
+        n = x.shape[0]
+        log(f"[check] K1 == plain bit for bit {kw}"
+            f"{f', {n} frames off the 16-byte grid' if n_off else ''}: "
+            f"det_valid {int(got.det_valid.sum())}/{n}, roi_valid "
+            f"{int(got.roi_valid.sum())}/{n}")
+        x = buf = None
     k4_err = check_k4(dev)
 
     # 4. The offline measure at the flagship configuration, counters from 0.
@@ -4696,8 +4722,36 @@ def main() -> int:
         run["ms"] = (dev_ms, e2e_ms)
     flag = dict(detect_row_pool=8)
     carry0 = fused_cuda.init_carry(dev)
-    k1_ms = cuda_ms(lambda: fused_cuda.fused_detect_roi_carry(
-        frames, carry0, **flag), inner=10)
+
+    def k1_call():
+        return fused_cuda.fused_detect_roi_carry(frames, carry0, **flag)
+
+    # K1 by events with the card's queue filled ahead (the card alone) and
+    # paced by the host, and each of its two launches under the profiler.
+    # The tracer drops the kernels launched while it starts up (a short
+    # trace late in a long process comes back empty), so 40 sums over the
+    # clip, a kernel of another name, go first.
+    k1_ms = cuda_ms(k1_call, reps=5, inner=10, queue_ahead=True)
+    k1_paced = cuda_ms(k1_call, inner=10)
+
+    def k1_traced():
+        torch.cuda.synchronize()
+        for _ in range(40):
+            frames[:64].sum(dtype=torch.int32)
+        torch.cuda.synchronize()
+        for _ in range(20):
+            k1_call()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    _, k1_split = device_profile(k1_traced, top=12)
+    k1_split = [(name, ms_, n) for name, ms_, n in k1_split
+                if "pass_kernel" in name or "roi_means" in name]
+    log(f"[time] K1 at {W}x{H} x {T} (detect_row_pool=8): {k1_ms:.4f} ms "
+        f"the queue filled ahead, {k1_paced:.4f} ms paced by the host; "
+        f"its launches under the profiler: " + ("; ".join(
+            f"{name[:50]} {ms_ / n:.4f} ms a launch ({n} of 20 traced)"
+            for name, ms_, n in k1_split) or "no device work traced"))
     k1_plain = cuda_ms(lambda: fused_cuda.fused_detect_roi_plain(
         frames, carry0, **flag))
     k2_ms = cuda_ms(lambda: roi_means_cuda.roi_channel_means_cuda(

@@ -152,3 +152,60 @@ def test_rejects_unaligned_width():
         fused_cuda.fused_detect_roi_cuda(
             torch.zeros((2, 32, 128, 3), dtype=torch.uint8),
             detect_row_pool=3)
+
+
+@pytest.mark.parametrize("row_bytes,address,want", [
+    (1920 * 3, 0x7F0000000000, "vector"),
+    (1920 * 3, 0x7F0000000000 + 104 * 384, "vector"),   # a later t_start
+    (1920 * 3, 0x7F0000000001, "scalar"),                # a sliced base
+    (1920 * 3, 0x7F0000000008, "scalar"),
+    (130 * 3, 0x7F0000000000, "scalar"),                 # 3 W % 16 != 0
+])
+def test_k1_skin_instance(row_bytes, address, want):
+    """K1's skin pass reads 16-byte groups only where every row of the
+    launch starts on the 16-byte grid."""
+    assert fused_cuda.skin_instance(row_bytes, address) == want
+
+
+def speckled_clip(seed, pool, T=8, H=64, W=128):
+    """A skin rectangle (rows 24-39) on black with single skin cells
+    (``pool`` rows of one column) strewn beside it in its rows, so that a
+    column holds none, one or more cells across the row chunks, and lone
+    cells in the other pooled rows (at most one a row, so they never make
+    a row of two).  Returns the frames and the cells ``(T, H/pool, W)``."""
+    rng = np.random.default_rng(seed)
+    cells = np.zeros((T, H // pool, W), bool)
+    face = slice(24 // pool, 40 // pool)
+    cells[:, face, 40:88] = True
+    cells[:, face] |= rng.random(cells[:, face].shape) < 0.6 * pool / 16
+    lone = rng.random(cells.shape[:2]) < 0.5
+    lone[:, face] = False
+    t, q = np.nonzero(lone)
+    cells[t, q, rng.integers(0, W, t.size)] = True
+    frames = np.zeros((T, H, W, 3), np.uint8)
+    frames[np.repeat(cells, pool, axis=1)] = (120, 150, 200)
+    return frames, cells
+
+
+@pytest.mark.parametrize("pool", [1, 2, 4, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_speckled_occupancy_matches_pallas(pool, seed):
+    """A box's columns are those whose skin cells in the scanned row
+    chunks times the pool reach 2 (without pooling a column needs two
+    cells, which may lie in two chunks): the port's CPU path equals the
+    Pallas kernel on clips of sparse cells, 8-row chunks, gated, with full
+    rescans."""
+    frames, cells = speckled_clip(seed, pool)
+    kw = dict(row_block=8, detect_row_pool=pool, gate_margin=0.15,
+              rescan_every=5)
+    ref = jfused.fused_detect_roi_pallas(jnp.asarray(frames),
+                                         interpret=True, **kw)
+    port = fused_cuda.fused_detect_roi_cuda(torch.as_tensor(frames), **kw)
+    _assert_same(port, ref)
+    boxes = port.boxes.numpy()
+    assert port.det_valid.numpy().all()
+    assert (boxes[:, 1] == 24).all() and (boxes[:, 3] == 39).all()
+    if pool == 1:
+        # Columns of one cell stay out of the box.
+        any_cell = [np.nonzero(c.any(0))[0][[0, -1]] for c in cells]
+        assert any((b[[0, 2]] != a).any() for b, a in zip(boxes, any_cell))

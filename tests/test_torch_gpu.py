@@ -6,9 +6,9 @@ installed; there, skip the JAX test configuration with
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Boxes, flags, counts and carries must be equal; means within
-``rtol=1e-6, atol=1e-5`` (both sides sum exactly, then divide in float32;
-K3's and K4's means are held equal).
+K1 to K4 must equal their plain versions bit for bit: boxes, flags,
+counts and carries, and the means (both sides sum exactly, then divide in
+float32).
 K6 within ``atol=1e-6`` (an exact blur, then the same YIQ expression); K7
 at most 1 u8 on at most 1e-3 of the values (the bilinear sum rounds as a
 dot product, which cuBLAS may order otherwise), and K7's two instances
@@ -35,8 +35,6 @@ from vhr_tpu_torch.ops import (evm_cuda, evm_recon_cuda, fused_cuda,
                                meshblocks_cuda, roi_means_cuda)
 from vhr_tpu_torch.ops.reduce import roi_channel_means
 
-TOL = dict(rtol=1e-6, atol=1e-5)
-
 
 @pytest.fixture(scope="module")
 def gpu_clip():
@@ -55,9 +53,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _same(got, want):
+def _equal(got, want):
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **TOL)
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
@@ -66,8 +64,16 @@ def _same(got, want):
     dict(row_block=64, detect_every=4, gate_margin=0.5, rescan_every=3),
     dict(row_block=8, detect_row_pool=8, gate_margin=0.2),
     dict(row_block=128, detect_row_pool=2, detect_every=3, seq_len=25),
+    # Each row pooling gated (``twice`` read at pool 1, ``once`` above),
+    # on chunks whose last one is clamped (104 rows in chunks of 32 or 64).
+    dict(row_block=32, gate_margin=0.15, rescan_every=7),
+    dict(row_block=32, detect_row_pool=2, gate_margin=0.15),
+    dict(row_block=32, detect_row_pool=4, gate_margin=0.15),
+    dict(row_block=64, detect_row_pool=8, gate_margin=0.15, rescan_every=5),
 ])
 def test_k1_matches_plain(gpu_clip, kw):
+    """Every output equal to the plain version's, bit for bit (the means
+    are exact sums divided once)."""
     frames = gpu_clip[0]
     carry = fused_cuda.init_carry(frames.device)
     before = fused_cuda.LAUNCHES
@@ -75,20 +81,71 @@ def test_k1_matches_plain(gpu_clip, kw):
     assert fused_cuda.LAUNCHES == before + 1
     want, want_c = fused_cuda.fused_detect_roi_plain(frames, carry, **kw)
     torch.cuda.synchronize()
-    _same(tuple(got) + (got_c,), tuple(want) + (want_c,))
+    _equal(tuple(got) + (got_c,), tuple(want) + (want_c,))
+
+
+def speckled_clip(seed, pool, T=8, H=64, W=128):
+    """A skin rectangle (rows 24-39) on black with single skin cells
+    (``pool`` rows of one column) strewn beside it in its rows, so that a
+    column holds none, one or more cells across the row chunks, and lone
+    cells in the other pooled rows (at most one a row)."""
+    rng = np.random.default_rng(seed)
+    cells = np.zeros((T, H // pool, W), bool)
+    face = slice(24 // pool, 40 // pool)
+    cells[:, face, 40:88] = True
+    cells[:, face] |= rng.random(cells[:, face].shape) < 0.6 * pool / 16
+    lone = rng.random(cells.shape[:2]) < 0.5
+    lone[:, face] = False
+    t, q = np.nonzero(lone)
+    cells[t, q, rng.integers(0, W, t.size)] = True
+    frames = np.zeros((T, H, W, 3), np.uint8)
+    frames[np.repeat(cells, pool, axis=1)] = (120, 150, 200)
+    return frames
 
 
 @pytest.mark.gpu
-def test_k1_chained_launches_match_plain(gpu_clip):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("pool", [1, 2, 4, 8])
+def test_k1_speckled_matches_plain(cuda, pool, offset):
+    """Columns of one, two or more skin cells across 8-row chunks, gated
+    and rescanned: the kernel's column masks (``twice`` without pooling,
+    ``once`` with) give the plain version's boxes and every other output
+    bit for bit, on the vector skin pass and, from a base off the 16-byte
+    grid, the scalar one."""
+    frames = torch.as_tensor(speckled_clip(0, pool)).to(cuda)
+    T, H, W, _ = frames.shape
+    buf = torch.empty(frames.numel() + offset, dtype=torch.uint8,
+                      device=cuda)
+    x = buf[offset:].view(T, H, W * 3)
+    x.copy_(frames.reshape(T, H, W * 3))
+    kw = dict(row_block=8, detect_row_pool=pool, gate_margin=0.15,
+              rescan_every=5)
+    carry = fused_cuda.init_carry(cuda)
+    got, got_c = fused_cuda.fused_detect_roi_carry(x, carry, **kw)
+    want, want_c = fused_cuda.fused_detect_roi_plain(x, carry, **kw)
+    torch.cuda.synchronize()
+    assert bool(want.det_valid.all())
+    _equal(tuple(got) + (got_c,), tuple(want) + (want_c,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,cuts", [
+    (dict(row_block=64, detect_every=2, gate_margin=0.5), [(0, 17), (17, 43)]),
+    (dict(row_block=32, detect_row_pool=8, gate_margin=0.15, seq_len=25),
+     [(0, 20), (20, 1), (21, 39)]),
+])
+def test_k1_chained_launches_match_plain(gpu_clip, kw, cuts):
+    """Launches over consecutive frames, the carry passed on (one of them
+    a single frame), each equal to the plain version's."""
     frames = gpu_clip[0]
-    kw = dict(row_block=64, detect_every=2, gate_margin=0.5)
     carry = fused_cuda.init_carry(frames.device)
-    for s, n in [(0, 17), (17, 43)]:
+    for s, n in cuts:
         got, carry_g = fused_cuda.fused_detect_roi_carry(
             frames, carry, t_start=s, t_len=n, **kw)
         want, carry_w = fused_cuda.fused_detect_roi_plain(
             frames, carry, t_start=s, t_len=n, **kw)
-        _same(tuple(got) + (carry_g,), tuple(want) + (carry_w,))
+        torch.cuda.synchronize()
+        _equal(tuple(got) + (carry_g,), tuple(want) + (carry_w,))
         carry = carry_g
 
 
@@ -531,33 +588,41 @@ def test_k2_k3_misaligned_base_takes_generic(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1, 8])
 @pytest.mark.parametrize("kw", [dict(row_block=64),
                                 dict(row_block=32, detect_every=3,
-                                     gate_margin=0.5)])
+                                     gate_margin=0.5),
+                                dict(row_block=64, detect_row_pool=2,
+                                     gate_margin=0.15),
+                                dict(row_block=32, detect_row_pool=4,
+                                     gate_margin=0.15),
+                                dict(row_block=32, detect_row_pool=8,
+                                     gate_margin=0.15)])
 def test_k1_roi_sums_bit_equal(gpu_clip, offset, kw):
-    """K1's third launch is the K2 entry with ``roi_ok``: its means and
-    counts equal the plain version's bit for bit (the plain version sums
-    the same ROIs exactly and zeroes the count of an invalid ROI), on the
-    vectorised instance and, from a base off the 16-byte grid, the
-    generic one."""
+    """K1's skin pass and its second launch (the K2 entry with ``roi_ok``)
+    equal the plain version bit for bit, on the vector instances and, from
+    a base off the 16-byte grid, on the scalar skin pass and the generic
+    K2 (the plain version sums the same ROIs exactly and zeroes the count
+    of an invalid ROI)."""
     frames = gpu_clip[0]
     T, H, W, _ = frames.shape
     buf = torch.empty(frames.numel() + offset, dtype=torch.uint8,
                       device=frames.device)
     x = buf[offset:].view(T, H, W * 3)
     x.copy_(frames.reshape(T, H, W * 3))
+    aligned = x.data_ptr() % 16 == 0
+    assert fused_cuda.skin_instance(W * 3, x.data_ptr()) == (
+        "vector" if aligned else "scalar")
     plan = roi_means_cuda.roi_plan(
         T, H, W, 3, H * W * 3, W * 3, roi_means_cuda.alignment(x.data_ptr()),
         roi_means_cuda.sm_count(0))
-    assert plan.instance == ("vector" if offset == 0 else "generic")
+    assert plan.instance == ("vector" if aligned else "generic")
     carry = fused_cuda.init_carry(frames.device)
     got, got_c = fused_cuda.fused_detect_roi_carry(x, carry, **kw)
     want, want_c = fused_cuda.fused_detect_roi_plain(x, carry, **kw)
     torch.cuda.synchronize()
     assert int(want.roi_valid.sum()) > 0
-    for g, w in zip(tuple(got) + (got_c,), tuple(want) + (want_c,)):
-        assert torch.equal(g, w)
+    _equal(tuple(got) + (got_c,), tuple(want) + (want_c,))
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,8 @@ means) alone on one CUDA card, at the sizes the paths launch them:
 ``chip_smoke.py``'s seeded 1080p face clip and its cheek ROIs at 960
 frames (K2 in the detect-then-reduce form, K3 on a whole clip) and 256
 (a stream's chunk, K3), and the skin-detector pool's 64 slots of 720p with
-the cheek ROIs the pool tick takes from them (K2); and K1 at 960 frames,
-whose third launch is the K2 entry.
+the cheek ROIs the pool tick takes from them (K2).  K1, whose second
+launch is the K2 entry, has its own ``tools/k1_profile.py``.
 
     python3 tools/roi_means_profile.py [label] [--parent DIR]
                                        [--probe NAME]... [--sweep]
@@ -13,11 +13,11 @@ whose third launch is the K2 entry.
 
 Run it from the root of the checkout; it builds the kernels, which takes
 seconds.  ``--parent DIR`` builds ``DIR/vhr_tpu_torch/csrc``'s
-``roi_means.cu``, ``roi_means_batched.cu`` and ``fused_detect.cu`` alone
-into one library whose C interfaces take no launch plan (K2's ends
-``(..., T, H, W, C, stream)``), holds this checkout's K2, K3 and K1 equal to
-it bit for bit, and times the two in turns inside this process (parent,
-this, this, parent), each through this checkout's wrappers.  ``--probe
+``roi_means.cu`` and ``roi_means_batched.cu`` alone into one library whose
+C interfaces take no launch plan (K2's ends ``(..., T, H, W, C,
+stream)``), holds this checkout's K2 and K3 equal to it bit for bit, and
+times the two in turns inside this process (parent, this, this, parent),
+each through this checkout's wrappers.  ``--probe
 NAME`` also builds this checkout's ``roi_means.cu`` alone with ``-DNAME``
 and times it in the same turns: ``ROI_PROBE_NO_CLUSTER`` (the bands of a
 frame not combined: not right) bounds what any combine costs,
@@ -33,7 +33,7 @@ with the parent's kernels in turns where ``--parent`` is given.
 2. (Unless ``--nocheck``.)  Each case on the vectorised and the generic
    instance, through the K2 and the K3 entry, against the plain version,
    means and counts bit for bit; with ``--parent`` the parent's K2 and K3
-   and K1's outputs too.
+   too.
 3. Milliseconds a launch by CUDA events with the card's queue filled ahead
    (the card alone), and once paced by the host; the generic instance
    beside the vectorised one; the bound (the ROI bytes over 3.35 TB/s); a
@@ -63,13 +63,10 @@ class ParentLib:
     plan's four arguments are dropped."""
 
     def __init__(self, so: ctypes.CDLL):
-        P, L, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_float)
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         sigs = {"vhr_roi_means_u8": [P, P, P, I, P, P, I, I, I, I, P],
                 "vhr_roi_means_batched_u8": [P, L, L, P, P, P, I, I, I, I,
-                                             P],
-                "vhr_fused_detect_roi": ([P] + [I] * 11 + [F, I] + [F] * 9
-                                         + [I] + [P] * 11)}
+                                             P]}
         for name, argtypes in sigs.items():
             fn = getattr(so, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -80,10 +77,6 @@ class ParentLib:
 
     def vhr_roi_means_batched_u8(self, *a):
         return self.so.vhr_roi_means_batched_u8(*a[:10], a[-1])
-
-    def vhr_fused_detect_roi(self, *a):
-        # The plan follows ``hold`` (argument 23).
-        return self.so.vhr_fused_detect_roi(*a[:24], *a[28:])
 
 
 def build_alone(sources, flags, tag: str) -> ctypes.CDLL:
@@ -108,21 +101,21 @@ def build_alone(sources, flags, tag: str) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def using(lib):
-    """Route the K1/K2/K3 wrappers' launches to ``lib`` (None: this
+    """Route the K2/K3 wrappers' launches to ``lib`` (None: this
     checkout's library)."""
     from vhr_tpu_torch import _build
-    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
+    from vhr_tpu_torch.ops import roi_means_cuda
 
     if lib is None:
         yield
         return
     ns = types.SimpleNamespace(library=lambda: lib, check=_build.check)
-    saved = roi_means_cuda._build, fused_cuda._build
-    roi_means_cuda._build = fused_cuda._build = ns
+    saved = roi_means_cuda._build
+    roi_means_cuda._build = ns
     try:
         yield
     finally:
-        roi_means_cuda._build, fused_cuda._build = saved
+        roi_means_cuda._build = saved
 
 
 def build_report(lib: Path) -> list:
@@ -155,7 +148,7 @@ def main() -> int:
     import torch
     from vhr_tpu_torch import _build
     from vhr_tpu_torch.config import PipelineConfig
-    from vhr_tpu_torch.ops import fused_cuda, roi, roi_means_cuda as rm
+    from vhr_tpu_torch.ops import roi, roi_means_cuda as rm
     from vhr_tpu_torch.ops.reduce import roi_channel_means
     from vhr_tpu_torch.pipeline.live import LiveConfig
 
@@ -179,8 +172,8 @@ def main() -> int:
     if args.parent:
         src = Path(args.parent).resolve() / "vhr_tpu_torch" / "csrc"
         libs["parent"] = ParentLib(build_alone(
-            [src / "roi_means.cu", src / "roi_means_batched.cu",
-             src / "fused_detect.cu"], flags, "parent"))
+            [src / "roi_means.cu", src / "roi_means_batched.cu"], flags,
+            "parent"))
     for define in args.probe:
         probe = build_alone([_build.CSRC / "roi_means.cu"],
                             flags + [f"-D{define}"], define.lower())
@@ -234,17 +227,6 @@ def main() -> int:
                     checks[f"{name} {define} == plain, twice"] = all(
                         torch.equal(g, w) and torch.equal(a, w)
                         for g, a, w in zip(got, again, want))
-        flag = dict(detect_row_pool=8)
-        carry = fused_cuda.init_carry(dev)
-        if "parent" in libs:
-            got = fused_cuda.fused_detect_roi_carry(frames, carry, **flag)
-            with using(libs["parent"]):
-                old = fused_cuda.fused_detect_roi_carry(frames, carry,
-                                                        **flag)
-            torch.cuda.synchronize()
-            checks[f"K1 {cs.T} x 1080p == parent"] = all(
-                torch.equal(g, w) for g, w in zip(tuple(got[0]) + (got[1],),
-                                                  tuple(old[0]) + (old[1],)))
         for key, same in checks.items():
             print(f"[check] {key}: {same}", flush=True)
         ok = all(checks.values())
@@ -296,18 +278,6 @@ def main() -> int:
                         rm.roi_plan = plan_fn
         print(f"[time] {name}: {json.dumps(rec)}", flush=True)
         times[name] = rec
-    flag = dict(detect_row_pool=8)
-    carry = fused_cuda.init_carry(dev)
-    rec = {}
-    for who in [o for o in order if o not in probes]:
-        with using(libs[who]):
-            rec.setdefault(who, []).append(cs.cuda_ms(
-                lambda: fused_cuda.fused_detect_roi_carry(frames, carry,
-                                                          **flag),
-                reps=5, inner=10, queue_ahead=True))
-    print(f"[time] K1 {cs.T} x 1080p, detect_row_pool=8: {json.dumps(rec)}",
-          flush=True)
-    times[f"K1 {cs.T} x 1080p"] = rec
     res["times"] = times
 
     if args.paths:

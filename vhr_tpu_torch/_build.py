@@ -39,7 +39,7 @@ _SIGNATURES = {
     "vhr_roi_means_u8": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
     "vhr_roi_means_batched_u8": [_P, _L, _L, _P, _P, _P] + [_I] * 8 + [_P],
     "vhr_fused_detect_roi": ([_P] + [_I] * 11 + [_F, _I] + [_F] * 9
-                             + [_I] * 5 + [_P] * 11),
+                             + [_I] * 6 + [_P] * 10),
     "vhr_fused_detect_roi_slots": ([_P] + [_I] * 7 + [_F, _I] + [_F] * 9
                                    + [_I] + [_P] * 9),
     "vhr_residual_stage": [_P, _P, _I] + [_P] * 9 + [_I] * 11 + [_P],

@@ -68,11 +68,10 @@ __host__ __device__ constexpr int depth_of(int pool) {
 __host__ __device__ constexpr int min_blocks_of(int pool) {
   return pool == 1 ? 4 : 3;
 }
-constexpr int kRowWords = 3 * kTileCols / 4;   // 12 words a tile row
+constexpr int kRowWords = vhr::kGroupWords;   // 12 words a tile row
 // A block's tiles span at most kThreads / 8 + 2 row groups (W >= 128 gives
 // 8 tiles a row group at least), each of at most 8 pooled rows.
 constexpr int kBlockRows = kThreads + 2 * kTileRows;
-constexpr float kTwo23 = 8388608.0f;
 
 struct SlotParams {
   int H, W, rb, detect_every, gated, rescan_every, hold;
@@ -120,29 +119,9 @@ __device__ __forceinline__ bool chunk_selected(const Gate& g, int chunk,
   return g.do_detect && start < g.gy2 && start + p.rb > g.gy1;
 }
 
-// Byte k (0..47) of a tile row as a float: the byte goes into the mantissa
-// of 2^23, which is then taken off.
-__device__ __forceinline__ float byte_f32(const uint32_t (&w)[kRowWords],
-                                          int k) {
-  return __uint_as_float(__byte_perm(w[k >> 2], 0x4B000000u,
-                                     0x7440u | (k & 3))) - kTwo23;
-}
-
-// The same for byte k of rows summed as 16-bit lanes: e holds bytes 0 and
-// 2 of each word, o bytes 1 and 3 (sums of 8 rows stay below 2^16).
-__device__ __forceinline__ float lane_f32(const uint32_t (&e)[kRowWords],
-                                          const uint32_t (&o)[kRowWords],
-                                          int k) {
-  const uint32_t src = (k & 1) ? o[k >> 2] : e[k >> 2];
-  return __uint_as_float(__byte_perm(src, 0x4B000000u,
-                                     (k & 2) ? 0x7432u : 0x7410u)) - kTwo23;
-}
-
-__device__ __forceinline__ void load_row(const uint8_t* row, uint4 (&v)[3]) {
-  const uint4* q = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) v[i] = __ldg(q + i);
-}
+using vhr::byte_f32;
+using vhr::lane_f32;
+using vhr::load_row;
 
 // grid (blocks per slot, S); POOL rows are mean-pooled before the test.
 template <int POOL>

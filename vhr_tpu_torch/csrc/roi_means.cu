@@ -462,7 +462,7 @@ int roi_means(const Args& a, int C, int instance, int bands, int threads,
 
 }  // namespace
 
-// K2: contiguous (T, H, W*C) frames; K1's third launch too.
+// K2: contiguous (T, H, W*C) frames; K1's second launch too.
 extern "C" int vhr_roi_means_u8(const uint8_t* frames, const int32_t* rois,
                                 const int32_t* roi_ok, int ok_stride,
                                 float* means, float* count,

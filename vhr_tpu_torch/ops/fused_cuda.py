@@ -31,7 +31,7 @@ from .roi_means_cuda import INSTANCES, alignment, roi_plan, sm_count
 __all__ = ["FusedResult", "init_carry", "fused_detect_roi_carry",
            "fused_detect_roi_cuda", "fused_detect_roi_plain",
            "fused_detect_roi_slots", "fused_detect_roi_slots_plain",
-           "LAUNCHES", "SLOT_LAUNCHES"]
+           "skin_instance", "SKIN_INSTANCES", "LAUNCHES", "SLOT_LAUNCHES"]
 
 # Kernel launches made by fused_detect_roi_carry (K1) and
 # fused_detect_roi_slots (K4), CUDA tensors only.
@@ -40,6 +40,10 @@ SLOT_LAUNCHES = 0
 
 # Frames per step of the plain version's vectorised skin test.
 _FRAME_CHUNK = 32
+
+# K1's skin pass comes in these instances; the C entry numbers them by
+# their index here.
+SKIN_INSTANCES = ("vector", "scalar")
 
 
 class FusedResult(NamedTuple):
@@ -103,6 +107,15 @@ def _geometry(frames: torch.Tensor, row_block: int, detect_row_pool: int,
     return _Geometry(T, H, W, rb, -(-H // rb),
                      np.float32(det.min_area_fraction * H * W), t_start,
                      t_len, t_start if phase is None else int(phase))
+
+
+def skin_instance(row_bytes: int, address: int) -> str:
+    """K1's skin-pass instance for frames whose rows are ``row_bytes``
+    apart, the launch's first frame at ``address``: ``"vector"`` (16-pixel
+    groups as three 16-byte loads a row) where every row starts on the
+    16-byte grid, else ``"scalar"`` (a byte a load)."""
+    return "vector" if row_bytes % 16 == 0 and address % 16 == 0 else \
+        "scalar"
 
 
 def _skin_cells(frames: torch.Tensor, pool: int, det: SkinDetectorConfig
@@ -287,19 +300,24 @@ def fused_detect_roi_carry(frames: torch.Tensor, carry: torch.Tensor,
     def i32(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
-    colcnt, stats = i32(t_len, g.n_chunks, g.W), i32(t_len, g.n_chunks, 3)
-    full = i32(t_len, 5)
+    # Each frame's summary: its detection, then each chunk's (cells, row
+    # and column extents, two column bitmasks of ceil(W / 32) words).
+    summary = i32(t_len, 8 + g.n_chunks * (8 + 2 * (-(-g.W // 32))))
     rois, boxes, flags, carry_out = i32(t_len, 4), i32(t_len, 4), \
         i32(t_len, 2), i32(6)
     means = torch.empty((t_len, 3), dtype=torch.float32, device=dev)
     count = torch.empty((t_len,), dtype=torch.float32, device=dev)
-    # The ROI sums are K2's launch on the t_len frames from t_start.
+    # The skin pass and the ROI sums (K2's launch) on the t_len frames from
+    # t_start.
     pitch = g.W * 3
-    plan = roi_plan(t_len, g.H, g.W, 3, g.H * pitch, pitch,
-                    alignment(frames.data_ptr() + t_start * g.H * pitch),
+    first = frames.data_ptr() + t_start * g.H * pitch
+    skin = skin_instance(pitch, first)
+    plan = roi_plan(t_len, g.H, g.W, 3, g.H * pitch, pitch, alignment(first),
                     sm_count(dev.index or 0))
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # The frames' ready counts, zero before the launch and after it.
+    ready = _zero_scratch(dev, stream, t_len)
     global LAUNCHES
     LAUNCHES += 1
     err = lib.vhr_fused_detect_roi(
@@ -309,12 +327,11 @@ def fused_detect_roi_carry(frames: torch.Tensor, carry: torch.Tensor,
         0.0 if gate_margin is None else gate_margin, rescan_every,
         float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
         det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
-        roi.landmark_hold_frames, INSTANCES.index(plan.instance),
-        plan.bands, plan.threads, plan.grid, carry.data_ptr(),
-        carry_out.data_ptr(),
-        colcnt.data_ptr(), stats.data_ptr(), full.data_ptr(), rois.data_ptr(),
-        boxes.data_ptr(), flags.data_ptr(), means.data_ptr(),
-        count.data_ptr(), stream)
+        roi.landmark_hold_frames, SKIN_INSTANCES.index(skin),
+        INSTANCES.index(plan.instance), plan.bands, plan.threads, plan.grid,
+        carry.data_ptr(), carry_out.data_ptr(), summary.data_ptr(),
+        ready.data_ptr(), rois.data_ptr(), boxes.data_ptr(),
+        flags.data_ptr(), means.data_ptr(), count.data_ptr(), stream)
     _build.check(err, "fused_detect_roi_carry")
     res = FusedResult(means=means, count=count, boxes=boxes,
                       det_valid=flags[:, 0] > 0, roi_valid=flags[:, 1] > 0)
@@ -377,18 +394,19 @@ def fused_detect_roi_slots_plain(frames: torch.Tensor, carry: torch.Tensor,
     return res, torch.stack([p[1] for p in parts])
 
 
-# K4's accumulators, one zero-filled int32 tensor per (device, stream).  Every
-# launch leaves them zero again, so any slot count and frame size can share
-# a tensor that is long enough; two launches on different streams must not.
-_SLOT_SCRATCH: dict = {}
+# K1's ready counts and K4's accumulators, one zero-filled int32 tensor per
+# (device, stream).  Every launch of either leaves it zero again, so any
+# launch size can share a tensor that is long enough; two launches on
+# different streams must not.
+_ZERO_SCRATCH: dict = {}
 
 
-def _slot_scratch(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+def _zero_scratch(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (dev.index if dev.index is not None else torch.cuda.current_device(),
            stream)
-    buf = _SLOT_SCRATCH.get(key)
+    buf = _ZERO_SCRATCH.get(key)
     if buf is None or buf.numel() < n:
-        buf = _SLOT_SCRATCH[key] = torch.zeros(n, dtype=torch.int32,
+        buf = _ZERO_SCRATCH[key] = torch.zeros(max(n, 1), dtype=torch.int32,
                                                device=dev)
     return buf
 
@@ -449,7 +467,7 @@ def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
     valid = out[S * 56:].view(torch.bool).view(2, S)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = _slot_scratch(dev, stream, S * (7 + g.W // 16 + g.H))
+    scratch = _zero_scratch(dev, stream, S * (7 + g.W // 16 + g.H))
     global SLOT_LAUNCHES
     SLOT_LAUNCHES += 1
     err = lib.vhr_fused_detect_roi_slots(
