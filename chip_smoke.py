@@ -499,6 +499,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def counter(name: str) -> int:
+    """A launch counter of the port's registry (``k1.launches``, ...)."""
+    from vhr_tpu_torch.utils import profiling
+
+    return profiling.counter(name)
+
+
+def reset_counters(*names: str) -> None:
+    from vhr_tpu_torch.utils import profiling
+
+    profiling.reset_counters(*names)
+
+
 def make_clip(device, t: int, h: int, w: int, seed: int = SEED,
               chunk: int = 64, bpm: float = TRUTH_BPM):
     """``(t, h, w, 3)`` u8 BGR face clip made on ``device`` from a seed,
@@ -746,9 +759,9 @@ def check_evm_kernels(dev, frames) -> dict:
                 planar = evm_cuda.to_planar(x)
                 if layout == "planar":
                     planar = planar.contiguous()
-                vec = evm_recon_cuda.VEC_LAUNCHES
+                vec = counter("k7.vec")
                 g = evm_recon_cuda.evm_reconstruct(planar, b)
-                vec = evm_recon_cuda.VEC_LAUNCHES > vec
+                vec = counter("k7.vec") > vec
                 w_ = evm_recon_cuda.evm_reconstruct_plain(planar, b)
                 torch.cuda.synchronize()
                 mx, frac = u8_diff(g, w_)
@@ -798,12 +811,12 @@ def run_evm(dev, frames) -> dict:
 
     cfg = EVMConfig()
     clip, _ = make_clip(dev, EVM_T, H, W, seed=SEED + 6, bpm=EVM_BPM)
-    evm_cuda.LAUNCHES = evm_recon_cuda.LAUNCHES = 0
-    evm_recon_cuda.VEC_LAUNCHES = evm_recon_cuda.GENERIC_LAUNCHES = 0
+    reset_counters("k6.launches", "k7.launches")
+    reset_counters("k7.vec", "k7.generic")
     out = evm.magnify(clip, FPS, cfg, use_pallas=True)
     torch.cuda.synchronize()
-    launches = {"K6": evm_cuda.LAUNCHES, "K7": evm_recon_cuda.LAUNCHES,
-                "K7 vectorised": evm_recon_cuda.VEC_LAUNCHES}
+    launches = {"K6": counter("k6.launches"), "K7": counter("k7.launches"),
+                "K7 vectorised": counter("k7.vec")}
     log(f"[evm] kernel launches in magnify: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of magnify never launched: "
@@ -826,12 +839,12 @@ def run_evm(dev, frames) -> dict:
     if mx > 2:
         raise AssertionError(f"magnify routes differ by {mx} u8")
 
-    evm_cuda.LAUNCHES = 0
+    reset_counters("k6.launches")
     res = measure_evm._measure_frames(frames, FPS)
     torch.cuda.synchronize()
-    launches["K6 measure"] = evm_cuda.LAUNCHES
-    log(f"[evm] kernel launches in the EVM measure: K6={evm_cuda.LAUNCHES}")
-    if evm_cuda.LAUNCHES < 1:
+    k6 = launches["K6 measure"] = counter("k6.launches")
+    log(f"[evm] kernel launches in the EVM measure: K6={k6}")
+    if k6 < 1:
         raise AssertionError("K6 never launched in the EVM measure")
     expect = T - int(measure_evm.ACQUISITION_TIME * FPS) + 1
     bpm = res[:, 1]
@@ -936,7 +949,6 @@ def run_measures(dev, frames, cfg) -> dict:
     import numpy as np
     import torch
     from vhr_tpu_torch.config import ICAConfig
-    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
     from vhr_tpu_torch.ops import windows as vwin
     from vhr_tpu_torch.pipeline import offline
 
@@ -1011,13 +1023,13 @@ def run_measures(dev, frames, cfg) -> dict:
                                                        "first", "steady"))
         for form, tag in ((True, "fused"), ("roi", "roi")):
             t_form = time.perf_counter()
-            fused_cuda.LAUNCHES = 0
-            roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
+            reset_counters("k1.launches")
+            reset_counters("k2.launches", "k2.vec")
             got = host(measure(frames, form))
             torch.cuda.synchronize()
-            launched = (fused_cuda.LAUNCHES if form is True
-                        else roi_means_cuda.LAUNCHES)
-            if launched < 1 or (form == "roi" and roi_means_cuda.VEC_LAUNCHES
+            launched = (counter("k1.launches") if form is True
+                        else counter("k2.launches"))
+            if launched < 1 or (form == "roi" and counter("k2.vec")
                                 != launched):
                 raise AssertionError(f"{name} {tag}: its kernel launched "
                                      f"{launched} times")
@@ -1145,11 +1157,10 @@ def run_decoders(dev, path: str, cfg, ref: dict, back) -> dict:
     import numpy as np
     import torch
     from vhr_tpu_torch.io import video as vio
-    from vhr_tpu_torch.ops import fused_cuda
     from vhr_tpu_torch.pipeline import offline
 
     n_chunks = -(-STREAM_T // STREAM_CHUNK)
-    fused_cuda.LAUNCHES = 0
+    reset_counters("k1.launches")
     ring = {}
     t0 = time.perf_counter()
     (bgr, valid, _), s_peak = peak_of(
@@ -1157,7 +1168,7 @@ def run_decoders(dev, path: str, cfg, ref: dict, back) -> dict:
             path, cfg, chunk_frames=STREAM_CHUNK, use_fused=True,
             detect_row_pool=8, n_decoders=DECODERS, ring_stats=ring))
     wall = time.perf_counter() - t0
-    launches = fused_cuda.LAUNCHES
+    launches = counter("k1.launches")
     log(f"[stream] fused, {DECODERS} decoders: K1 launches {launches}; "
         f"{STREAM_T} frames in {wall:.2f} s = {STREAM_T / wall:.1f} "
         f"frames/s from the file "
@@ -1210,7 +1221,7 @@ def run_i420(dev, path: str, cfg, back, ref: dict) -> dict:
     import cv2
     import numpy as np
     import torch
-    from vhr_tpu_torch.ops import color, fused_cuda, roi_means_cuda
+    from vhr_tpu_torch.ops import color
     from vhr_tpu_torch.pipeline import offline
 
     n_chunks = -(-STREAM_T // STREAM_CHUNK)
@@ -1249,7 +1260,7 @@ def run_i420(dev, path: str, cfg, back, ref: dict) -> dict:
     out = dict(times=times)
     for form, kw in (("fused", dict(use_fused=True, detect_row_pool=8)),
                      ("detect", {})):
-        fused_cuda.LAUNCHES = roi_means_cuda.BATCHED_LAUNCHES = 0
+        reset_counters("k1.launches", "k2.batched")
         ring = {}
         t0 = time.perf_counter()
         (bgr, valid, _), s_peak = peak_of(
@@ -1257,7 +1268,7 @@ def run_i420(dev, path: str, cfg, back, ref: dict) -> dict:
                 path, cfg, chunk_frames=STREAM_CHUNK, transfer="i420",
                 ring_stats=ring, **kw))
         wall = time.perf_counter() - t0
-        k1, k3 = fused_cuda.LAUNCHES, roi_means_cuda.BATCHED_LAUNCHES
+        k1, k3 = counter("k1.launches"), counter("k2.batched")
         tr = whole[form]
         w_bgr, w_valid = tr.bgr.cpu().numpy(), tr.valid.cpu().numpy()
         err = float(np.abs(bgr - w_bgr).max())
@@ -1445,7 +1456,7 @@ def run_live(dev) -> dict:
     for name, kw in modes:
         transfer = kw.get("transfer", "bgr")
         src = planar if transfer == "i420" else bgr
-        fused_cuda.SLOT_LAUNCHES = 0
+        reset_counters("k4.launches")
         pipe = live.LivePipeline(cfg, **kw)
         sent, outs, lat = [], [], []
 
@@ -1462,7 +1473,7 @@ def run_live(dev) -> dict:
             take(o, time.perf_counter())
         take(pipe.flush(), time.perf_counter())
         wall = time.perf_counter() - t0
-        launches = fused_cuda.SLOT_LAUNCHES
+        launches = counter("k4.launches")
         want = ref[transfer]
         same = len(outs) == len(want) and all(
             np.array_equal(np.asarray(getattr(a, k)), np.asarray(getattr(b,
@@ -1501,7 +1512,6 @@ def run_pool_i420(dev) -> dict:
     times."""
     import numpy as np
     from vhr_tpu_torch import serving
-    from vhr_tpu_torch.ops import fused_cuda
     from vhr_tpu_torch.pipeline import live
 
     cfg = live.LiveConfig(fps=FPS, use_fused=True)
@@ -1511,7 +1521,7 @@ def run_pool_i420(dev) -> dict:
         for _ in range(SLOTS):
             pool.attach()
     subj = Subjects(dev, SLOTS, PH, PW, SEED + 7)
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k4.launches")
     walls = {"bgr": [], "i420": []}
     worst, face_same = 0.0, True
     for t in range(I420_TICKS):
@@ -1528,7 +1538,7 @@ def run_pool_i420(dev) -> dict:
             a, b = outs["bgr"][s], outs["i420"][s]
             face_same &= bool(a.face_valid) == bool(b.face_valid)
             worst = max(worst, abs(float(a.green_raw) - float(b.green_raw)))
-    launches = fused_cuda.SLOT_LAUNCHES
+    launches = counter("k4.launches")
     med = {k: statistics.median(v) for k, v in walls.items()}
     log(f"[pool i420] {SLOTS} x {PW}x{PH}, {I420_TICKS} ticks beside the BGR "
         f"pool: K4 launches {launches}; face_valid equal on every tick "
@@ -1594,14 +1604,13 @@ def run_apps(dev, frames, truth: float) -> dict:
     from vhr_tpu_torch import serving
     from vhr_tpu_torch.apps import rppg_livestream, serve_bpm
     from vhr_tpu_torch.io import video as vio
-    from vhr_tpu_torch.ops import fused_cuda
     from vhr_tpu_torch.pipeline import live
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "subject.avi")
         vio.write_video(frames, path, FPS, fourcc="MJPG")
-        fused_cuda.SLOT_LAUNCHES = 0
+        reset_counters("k4.launches")
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1613,10 +1622,10 @@ def run_apps(dev, frames, truth: float) -> dict:
                 if ln.startswith("Bpm after filtering")]
         med = float(np.median(bpms[-60:])) if bpms else math.nan
         log(f"[apps] rppg_livestream --fused --transfer i420: exit {rc} in "
-            f"{wall:.1f} s; K4 launches {fused_cuda.SLOT_LAUNCHES}; "
+            f"{wall:.1f} s; K4 launches {counter('k4.launches')}; "
             f"{len(bpms)} BPM lines, median of the last 60 {med:.3f} vs "
             f"truth {truth:.3f}; its last line: {text[-1] if text else ''}")
-        if rc != 0 or fused_cuda.SLOT_LAUNCHES < 1 or len(bpms) < 60 \
+        if rc != 0 or counter("k4.launches") < 1 or len(bpms) < 60 \
                 or abs(med - truth) > BPM_TOL:
             raise AssertionError(f"rppg_livestream: exit {rc}, median "
                                  f"{med}")
@@ -1658,7 +1667,6 @@ def run_streaming(dev, frames, cfg) -> dict:
     import numpy as np
     import torch
     from vhr_tpu_torch.io import video as vio
-    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
     from vhr_tpu_torch.pipeline import offline
     from vhr_tpu_torch.validation import cpu_reference_green_avg
 
@@ -1683,10 +1691,8 @@ def run_streaming(dev, frames, cfg) -> dict:
 
         for form, kw in (("detect", {}),
                          ("fused", dict(use_fused=True, detect_row_pool=8))):
-            counter = "BATCHED_LAUNCHES" if form == "detect" else "LAUNCHES"
-            mod = roi_means_cuda if form == "detect" else fused_cuda
-            setattr(mod, counter, 0)
-            roi_means_cuda.VEC_LAUNCHES = 0
+            key = "k2.batched" if form == "detect" else "k1.launches"
+            reset_counters(key, "k2.vec")
             ring = {}
             t0 = time.perf_counter()
             (bgr, valid, s_fps), s_peak = peak_of(
@@ -1694,7 +1700,7 @@ def run_streaming(dev, frames, cfg) -> dict:
                     path, cfg, chunk_frames=STREAM_CHUNK, ring_stats=ring,
                     **kw))
             wall = time.perf_counter() - t0
-            launches = getattr(mod, counter)
+            launches = counter(key)
             name = "K3" if form == "detect" else "K1"
             log(f"[stream] {form}: {name} launches {launches}; {STREAM_T} "
                 f"frames in {wall:.2f} s = {STREAM_T / wall:.1f} frames/s "
@@ -1703,9 +1709,9 @@ def run_streaming(dev, frames, cfg) -> dict:
             if launches < 1 or (form == "fused" and launches != n_chunks):
                 raise AssertionError(f"{form} stream: {name} launched "
                                      f"{launches} times")
-            if form == "detect" and roi_means_cuda.VEC_LAUNCHES != launches:
+            if form == "detect" and counter("k2.vec") != launches:
                 raise AssertionError(
-                    f"detect stream: {roi_means_cuda.VEC_LAUNCHES} of "
+                    f"detect stream: {counter('k2.vec')} of "
                     f"{launches} K3 launches on the vectorised instance")
 
             def whole_pass():
@@ -1734,15 +1740,15 @@ def run_streaming(dev, frames, cfg) -> dict:
 
         out["decoders"] = run_decoders(dev, path, cfg, out["fused"], back)
         out["i420"] = run_i420(dev, path, cfg, back, out)
-        fused_cuda.LAUNCHES = 0
+        reset_counters("k1.launches")
         t0 = time.perf_counter()
         _, bpm, valid = offline.measure_green_avg_file(
             path, cfg, chunk_frames=STREAM_CHUNK, use_fused=True,
             detect_row_pool=8)
         wall = time.perf_counter() - t0
-        if fused_cuda.LAUNCHES != n_chunks:
+        if counter("k1.launches") != n_chunks:
             raise AssertionError(f"measure_green_avg_file: K1 launched "
-                                 f"{fused_cuda.LAUNCHES} times")
+                                 f"{counter('k1.launches')} times")
     f = out["fused"]
     green = offline._fill_invalid(torch.as_tensor(f["bgr"][:, cfg.channel]),
                                   torch.as_tensor(f["valid"])).numpy()
@@ -1753,7 +1759,7 @@ def run_streaming(dev, frames, cfg) -> dict:
     mae = (sum(abs(float(bpm[i]) - ref[i]) for i in idx) / len(idx)
            if idx else math.inf)
     log(f"[stream] measure_green_avg_file (fused, K1 x "
-        f"{fused_cuda.LAUNCHES}): {STREAM_T / wall:.1f} frames/s from the "
+        f"{counter('k1.launches')}): {STREAM_T / wall:.1f} frames/s from the "
         f"file; "
         f"valid {int(valid.sum())}/{expect} frames from the end of the "
         f"acquisition; BPM "
@@ -1983,7 +1989,6 @@ def run_mediapipe(dev, cfg) -> dict:
     from vhr_tpu_torch.models import mediapipe_face as mpf
     from vhr_tpu_torch.models import tflite, tflite_exec
     from vhr_tpu_torch.ops import meshblocks_cuda as mb
-    from vhr_tpu_torch.ops import roi_means_cuda
     from vhr_tpu_torch.pipeline import offline
     from vhr_tpu_torch.validation import cpu_reference_green_avg
 
@@ -2052,12 +2057,12 @@ def run_mediapipe(dev, cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    mb.LAUNCHES = roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
+    reset_counters("k5.launches", "k2.launches", "k2.vec")
     _, bpm, valid = offline.measure_green_avg(frames, FPS, cfg, detector=det,
                                               use_pallas="roi")
     torch.cuda.synchronize()
-    launches = {"K5": mb.LAUNCHES, "K2": roi_means_cuda.LAUNCHES,
-                "K2 vectorised": roi_means_cuda.VEC_LAUNCHES}
+    launches = {"K5": counter("k5.launches"), "K2": counter("k2.launches"),
+                "K2 vectorised": counter("k2.vec")}
     peak = torch.cuda.max_memory_allocated() - base
     log(f"[mediapipe] kernel launches in the measure: {launches}; peak "
         f"device memory above the phase's {peak / 1e9:.3f} GB")
@@ -2132,10 +2137,10 @@ def run_mediapipe(dev, cfg) -> dict:
     # clip's bound.
     product = mpf.make_mediapipe_detector()
     picks = list(range(0, T, max(1, T // MP_SINGLE_N)))[:MP_SINGLE_N]
-    before = mb.LAUNCHES
+    before = counter("k5.launches")
     v_one = torch.cat([product(frames[i:i + 1])[1] for i in picks])
     torch.cuda.synchronize()
-    k5_one = mb.LAUNCHES - before
+    k5_one = counter("k5.launches") - before
     v_ref = torch.cat([unfused(frames[i:i + 1])[1] for i in picks])
     agree_1 = float((v_one == v_ref).double().mean())
     d1 = []
@@ -2268,13 +2273,13 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
     torch.cuda.synchronize()
     t_make = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mb.LAUNCHES = 0
+    reset_counters("k5.launches")
     trace = offline.extract_signals_multi(duo, 2, mcfg, detector=det)
     _, bpm, valid = offline.measure_green_avg_multi(duo, FPS, 2, mcfg,
                                                     trace=trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"]["K=2 measure"] = mb.LAUNCHES
+    k5 = out["launches"]["K=2 measure"] = counter("k5.launches")
     expect = MPM_T - mcfg.acquisition_len(FPS) + 1
     n_valid = valid.sum(0).tolist()
     last = [float(bpm[np.nonzero(valid[:, k])[0][-1], k])
@@ -2283,15 +2288,15 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
     both = tv.all(1)
     ordered = bool((tb[both][:, 0, 2] < tb[both][:, 1, 0]).all())
     log(f"[landmark] K=2 MediaPipe measure on {tuple(duo.shape)} (made in "
-        f"{t_make:.1f} s): {wall:.2f} s; K5 launches {mb.LAUNCHES}; "
+        f"{t_make:.1f} s): {wall:.2f} s; K5 launches {k5}; "
         f"detector valid on both faces {int(both.sum())}/{MPM_T} frames, "
         f"boxes in x-order {ordered}; valid {n_valid} of {expect} frames "
         f"from the end of the acquisition; last valid BPM {last} (truth "
         f"{list(DUO_BPM)})")
-    if mb.LAUNCHES < 1 or not ordered or min(n_valid) < 0.95 * expect \
+    if k5 < 1 or not ordered or min(n_valid) < 0.95 * expect \
             or not all(abs(last[k] - DUO_BPM[k]) <= BPM_TOL
                        for k in range(2)):
-        raise AssertionError(f"K=2 MediaPipe measure: K5 {mb.LAUNCHES}, "
+        raise AssertionError(f"K=2 MediaPipe measure: K5 {k5}, "
                              f"x-order {ordered}, valid {n_valid} of "
                              f"{expect}, last BPM {last}")
     out["s"]["K=2 measure"] = wall
@@ -2337,14 +2342,14 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        mb.LAUNCHES = 0
+        reset_counters("k5.launches")
         t0 = time.perf_counter()
         trace = run(frames, det1, cfg)
         bpm_t, ok_t = offline._green_bpm(trace.bgr, trace.valid, FPS, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
-        out["launches"][name] = mb.LAUNCHES
+        k5 = out["launches"][name] = counter("k5.launches")
         green = offline._fill_invalid(trace.bgr[:, cfg.channel], trace.valid)
         ref = cpu_reference_green_avg(green.cpu().numpy(), FPS,
                                       cfg.window_seconds,
@@ -2357,17 +2362,17 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
         roi = trace.rois[trace.valid].float()
         side = (roi[:, 2:] - roi[:, :2]).mean(0).tolist() if len(roi) else []
         log(f"[landmark] {name} measure on {tuple(frames.shape)}: "
-            f"{wall:.2f} s; K5 launches {mb.LAUNCHES}; detector valid "
+            f"{wall:.2f} s; K5 launches {k5}; detector valid "
             f"{int(trace.valid.sum())}/{T}; valid {n_ok}/{T - acq + 1} "
             f"frames from the end of the acquisition; BPM MAE vs numpy "
             f"reference {mae:.4f} over {len(idx)} frames; mean ROI "
             f"{side} px; peak device memory above the clip "
             f"{peak / 1e9:.3f} GB (the clip in float32: "
             f"{clip_f32 / 1e9:.1f} GB)")
-        if mb.LAUNCHES < 1 or n_ok < 0.95 * (T - acq + 1) \
+        if k5 < 1 or n_ok < 0.95 * (T - acq + 1) \
                 or len(idx) < 0.95 * n_ok or mae > 0.5 \
                 or not np.isfinite(bpm1).all() or peak > clip_f32 / 8:
-            raise AssertionError(f"{name} measure: K5 {mb.LAUNCHES}, "
+            raise AssertionError(f"{name} measure: K5 {k5}, "
                                  f"{n_ok} valid, MAE {mae}, peak {peak}")
         out["s"][name] = wall
         out[f"peak {name}"] = peak
@@ -2390,7 +2395,7 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
 
         rppg_video.analyze_multi = keep
         buf = io.StringIO()
-        mb.LAUNCHES = 0
+        reset_counters("k5.launches")
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -2402,22 +2407,22 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
             rppg_video.analyze_multi = inner
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out["launches"]["rppg_video"] = mb.LAUNCHES
+        k5 = out["launches"]["rppg_video"] = counter("k5.launches")
         faces = dict(ln.split(" BPM: ") for ln in buf.getvalue().splitlines()
                      if ln.startswith("face"))
         b, v = kept[0]["boxes"], kept[0]["valid"]
         ordered = bool((b[v.all(1)][:, 0, 2] < b[v.all(1)][:, 1, 0]).all())
         log(f"[landmark] rppg_video --faces 2 --detector mediapipe on "
             f"{MPM_T} frames of {W}x{H} MJPG (written in {t_write:.1f} s): "
-            f"exit {rc} in {wall:.2f} s; K5 launches {mb.LAUNCHES}; {faces}; "
+            f"exit {rc} in {wall:.2f} s; K5 launches {k5}; {faces}; "
             f"both faces valid on {int(v.all(1).sum())} frames, boxes in "
             f"x-order {ordered}")
-        if rc != 0 or mb.LAUNCHES < 1 or set(faces) != {"face0", "face1"} \
+        if rc != 0 or k5 < 1 or set(faces) != {"face0", "face1"} \
                 or not ordered or any(
                     abs(float(faces[f"face{k}"]) - DUO_BPM[k]) > BPM_TOL
                     for k in range(2)):
             raise AssertionError(f"rppg_video --faces 2 mediapipe: exit "
-                                 f"{rc}, K5 {mb.LAUNCHES}, {faces}, x-order "
+                                 f"{rc}, K5 {k5}, {faces}, x-order "
                                  f"{ordered}")
         out["s"]["rppg_video --faces 2 mediapipe"] = wall
         del kept
@@ -2432,24 +2437,24 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
     lcfg = live.LiveConfig(fps=FPS)
     host = lduo.cpu().numpy()
     pipe = live.LivePipeline(lcfg, detector=det, k_faces=2)
-    mb.LAUNCHES = 0
+    reset_counters("k5.launches")
     t0 = time.perf_counter()
     got = [o for o in map(pipe.submit, host) if o is not None]
     got.append(pipe.flush())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"]["LivePipeline"] = mb.LAUNCHES
+    k5 = out["launches"]["LivePipeline"] = counter("k5.launches")
     last = got[-1]
     log(f"[landmark] LivePipeline(k_faces=2) with the MediaPipe detector on "
         f"{MPM_LIVE_T} frames of {PW}x{PH}: {wall:.2f} s "
-        f"({MPM_LIVE_T / wall:.1f} frames/s); K5 launches {mb.LAUNCHES}; "
+        f"({MPM_LIVE_T / wall:.1f} frames/s); K5 launches {k5}; "
         f"last BPM {last.bpm.tolist()} valid {last.bpm_valid.tolist()}")
-    if len(got) != MPM_LIVE_T or mb.LAUNCHES < 1 \
+    if len(got) != MPM_LIVE_T or k5 < 1 \
             or not last.bpm_valid.all() or any(
                 abs(float(last.bpm[k]) - DUO_BPM[k]) > BPM_TOL
                 for k in range(2)):
         raise AssertionError(f"LivePipeline(k_faces=2) mediapipe: K5 "
-                             f"{mb.LAUNCHES}, last {last}")
+                             f"{k5}, last {last}")
     out["s"]["LivePipeline k_faces=2 mediapipe"] = wall
     del host
 
@@ -2458,24 +2463,24 @@ def run_landmark_slice(dev, frames, cfg, card: str) -> dict:
     for _ in range(DUO_SLOTS):
         pool.attach()
     mirrored = lduo.flip(2)
-    mb.LAUNCHES = 0
+    reset_counters("k5.launches")
     t0 = time.perf_counter()
     for i in range(MPM_LIVE_T):
         outs = pool.tick({s: (lduo[i] if s < 2 else mirrored[i])
                           for s in range(DUO_SLOTS)})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"]["pool"] = mb.LAUNCHES
+    k5 = out["launches"]["pool"] = counter("k5.launches")
     ends = {s: (outs[s].bpm.tolist(), outs[s].bpm_valid.tolist())
             for s in range(DUO_SLOTS)}
     want = {s: DUO_BPM if s < 2 else DUO_BPM[::-1] for s in range(DUO_SLOTS)}
     log(f"[landmark] pool k_faces=2 with the MediaPipe detector, {DUO_SLOTS} "
         f"slots x {MPM_LIVE_T} ticks of {PW}x{PH}: {wall:.2f} s; K5 "
-        f"launches {mb.LAUNCHES}; last BPM and validity {ends}")
-    if mb.LAUNCHES < 1 or any(not all(ends[s][1]) or any(
+        f"launches {k5}; last BPM and validity {ends}")
+    if k5 < 1 or any(not all(ends[s][1]) or any(
             abs(ends[s][0][k] - want[s][k]) > BPM_TOL for k in range(2))
             for s in range(DUO_SLOTS)):
-        raise AssertionError(f"pool k_faces=2 mediapipe: K5 {mb.LAUNCHES}, "
+        raise AssertionError(f"pool k_faces=2 mediapipe: K5 {k5}, "
                              f"{ends}")
     out["s"]["pool k_faces=2 mediapipe"] = wall
     del lduo, mirrored, pool
@@ -2527,13 +2532,13 @@ def learned_measure(name, det, x, truth, mcfg, iou_min, out):
 
     n = x.shape[0]
     expect = n - mcfg.acquisition_len(FPS) + 1
-    roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
+    reset_counters("k2.launches", "k2.vec")
     t0 = time.perf_counter()
     _, bpm, valid = offline.measure_green_avg(x, FPS, mcfg, detector=det,
                                               use_pallas="roi")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k2, vec = roi_means_cuda.LAUNCHES, roi_means_cuda.VEC_LAUNCHES
+    k2, vec = counter("k2.launches"), counter("k2.vec")
     out["launches"][name] = k2
     trace = offline.extract_signals(x, mcfg, det, use_pallas="roi")
     green = offline._fill_invalid(trace.bgr[:, mcfg.channel],
@@ -2673,7 +2678,7 @@ def run_learned_slice(dev, frames, truth_boxes, cfg, card: str,
         return step_k2(x, rois, **kw)
 
     live.roi_channel_means_cuda = keep_step
-    roi_means_cuda.LAUNCHES = 0
+    reset_counters("k2.launches")
     lat, got_out = [], []
     t0 = time.perf_counter()
     try:
@@ -2688,7 +2693,7 @@ def run_learned_slice(dev, frames, truth_boxes, cfg, card: str,
     finally:
         live.roi_channel_means_cuda = step_k2
     wall = time.perf_counter() - t0
-    k2 = roi_means_cuda.LAUNCHES
+    k2 = counter("k2.launches")
     out["launches"]["LivePipeline"] = k2
     last = got_out[-1]
     p50 = statistics.median(lat)
@@ -3084,17 +3089,16 @@ def check_roi_means(fn, tag: str, cases) -> float:
     counts equal to the plain version's bit for bit, each instance's launch
     counter moved.  Returns the largest |difference| (0)."""
     import torch
-    from vhr_tpu_torch.ops import roi_means_cuda as rm
     from vhr_tpu_torch.ops.reduce import roi_channel_means
 
     err = 0.0
     for name, x, rois, kw in cases:
         want = roi_channel_means(x, rois, **kw)
         for instance in (None, "generic"):
-            counts = (rm.VEC_LAUNCHES, rm.GENERIC_LAUNCHES)
+            counts = (counter("k2.vec"), counter("k2.generic"))
             got = fn(x, rois, instance=instance, **kw)
             torch.cuda.synchronize()
-            took = "vector" if rm.VEC_LAUNCHES > counts[0] else "generic"
+            took = "vector" if counter("k2.vec") > counts[0] else "generic"
             if instance is not None and took != instance:
                 raise AssertionError(f"{tag} {name}: {instance} not launched")
             err = max(err, compare(f"{tag} {name} ({took})", got, want))
@@ -3405,7 +3409,6 @@ def run_analysis(dev, frames, card: str) -> dict:
     from vhr_tpu_torch.analysis.measurement import green_avg
     from vhr_tpu_torch.config import PipelineConfig
     from vhr_tpu_torch.io import video as vio
-    from vhr_tpu_torch.ops import evm_cuda, meshblocks_cuda as mb
     from vhr_tpu_torch.pipeline import offline
 
     h, w = frames.shape[1:3]
@@ -3431,12 +3434,12 @@ def run_analysis(dev, frames, card: str) -> dict:
         log(f"[analysis] {name} clip {tuple(clip.shape)} written as mp4v in "
             f"{time.perf_counter() - t0:.1f} s")
 
-    def sweep(name, n, argv, counter, key=None):
+    def sweep(name, n, argv, kernel, key=None):
         """``main`` on ``<name>.mp4`` of ``n`` frames, counters from 0: the
-        launches (``counter``'s at least one, where the sweep's path has a
-        kernel), every level's ``.npy`` against ``summary.json``, the
+        launches (``kernel``'s at least one, where the sweep's path has
+        one), every level's ``.npy`` against ``summary.json``, the
         stage times, kept under ``key`` (default ``name``)."""
-        evm_cuda.LAUNCHES = mb.LAUNCHES = 0
+        reset_counters("k6.launches", "k5.launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = amain.main(["--video", os.path.join(tmp, f"{name}.mp4"),
@@ -3447,10 +3450,10 @@ def run_analysis(dev, frames, card: str) -> dict:
         base = os.path.join(results, name)
         with open(os.path.join(base, "summary.json")) as f:
             summary = json.load(f)
-        launches = {"K6": evm_cuda.LAUNCHES, "K5": mb.LAUNCHES}
+        launches = {"K6": counter("k6.launches"), "K5": counter("k5.launches")}
         log(f"[analysis] main {' '.join(argv)}: exit {rc} in {wall:.1f} s; "
             f"kernel launches {launches}")
-        if rc != 0 or (counter and launches[counter] < 1):
+        if rc != 0 or (kernel and launches[kernel] < 1):
             raise AssertionError(f"analysis sweep {argv}: exit {rc}, "
                                  f"launches {launches}")
         for deg, by_m in summary["rows"].items():
@@ -3469,8 +3472,8 @@ def run_analysis(dev, frames, card: str) -> dict:
             log(f"[analysis] {name} {stage}: {v['total_s']:.3f} s, "
                 f"{v['count']} calls, {v['mean_ms']:.1f} ms a call{rate} "
                 f"({card})")
-        if counter:
-            out["launches"][counter] = launches[counter]
+        if kernel:
+            out["launches"][kernel] = launches[kernel]
         out[key or name] = dict(wall=wall, stages=summary["stage_timings"])
         return base, summary
 
@@ -3653,8 +3656,7 @@ def run_app_slice(dev, frames, card: str) -> dict:
     from vhr_tpu_torch.apps import bpp, evm_magnify, rppg_video
     from vhr_tpu_torch.config import PipelineConfig
     from vhr_tpu_torch.io import video as vio
-    from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda, fused_cuda
-    from vhr_tpu_torch.ops import meshblocks_cuda as mb
+    from vhr_tpu_torch.ops import fused_cuda
     from vhr_tpu_torch.pipeline import live, offline
 
     out = {"launches": {}, "s": {}}
@@ -3760,20 +3762,20 @@ def run_app_slice(dev, frames, card: str) -> dict:
         fpath = os.path.join(tmp, "face.avi")
         vio.write_video(face.cpu().numpy(), fpath, FPS, fourcc="MJPG")
         del face
-        mb.LAUNCHES = 0
+        reset_counters("k5.launches")
         rc, lines, wall = call(rppg_video.main, [
             fpath, "--out-dir", os.path.join(tmp, "face"), "--detector",
             "mediapipe"])
         torch.cuda.synchronize()
-        out["launches"]["K5"] = mb.LAUNCHES
+        k5 = out["launches"]["K5"] = counter("k5.launches")
         bpms = filter_bpms(lines)
         log(f"[app] rppg_video --detector mediapipe: exit {rc} in "
-            f"{wall:.2f} s; K5 launches {mb.LAUNCHES}; last valid BPM "
+            f"{wall:.2f} s; K5 launches {k5}; last valid BPM "
             f"{bpms}")
-        if rc != 0 or mb.LAUNCHES < 1 or len(bpms) != 3 \
+        if rc != 0 or k5 < 1 or len(bpms) != 3 \
                 or any(abs(b - TRUTH_BPM) > BPM_TOL for b in bpms):
             raise AssertionError(f"rppg_video mediapipe: exit {rc}, K5 "
-                                 f"{mb.LAUNCHES}, BPM {bpms}")
+                                 f"{k5}, BPM {bpms}")
         out["s"]["rppg_video mediapipe"] = wall
 
         # Two faces at 720p: the video app with --faces 2, LivePipeline and
@@ -3876,24 +3878,22 @@ def run_app_slice(dev, frames, card: str) -> dict:
         clip, _ = make_clip(dev, MAG_APP_T, H, W, seed=SEED + 6, bpm=EVM_BPM)
         src, dst = os.path.join(tmp, "evm.avi"), os.path.join(tmp, "mag.mp4")
         vio.write_video(clip.cpu().numpy(), src, FPS, fourcc="MJPG")
-        evm_cuda.LAUNCHES = evm_recon_cuda.LAUNCHES = 0
+        reset_counters("k6.launches", "k7.launches")
         rc, lines, wall = call(evm_magnify.main, [src, dst])
         torch.cuda.synchronize()
-        out["launches"]["K6"] = evm_cuda.LAUNCHES
-        out["launches"]["K7"] = evm_recon_cuda.LAUNCHES
+        k6 = out["launches"]["K6"] = counter("k6.launches")
+        k7 = out["launches"]["K7"] = counter("k7.launches")
         mag, _ = vio.read_video(dst)
         gain = cheek_pulse(torch.as_tensor(mag, device=dev), EVM_BPM) \
             / cheek_pulse(clip, EVM_BPM)
         log(f"[app] evm_magnify: exit {rc} in {wall:.2f} s "
             f"({MAG_APP_T / wall:.1f} frames/s with decode and encode); K6 "
-            f"{evm_cuda.LAUNCHES}, K7 "
-            f"{evm_recon_cuda.LAUNCHES} launches; output {mag.shape}; cheek "
+            f"{k6}, K7 {k7} launches; output {mag.shape}; cheek "
             f"pulse gain {gain:.2f}x")
-        if rc != 0 or evm_cuda.LAUNCHES != 1 or evm_recon_cuda.LAUNCHES != 1 \
+        if rc != 0 or k6 != 1 or k7 != 1 \
                 or mag.shape != tuple(clip.shape) or not gain > 5.0:
             raise AssertionError(f"evm_magnify: exit {rc}, K6 "
-                                 f"{evm_cuda.LAUNCHES}, K7 "
-                                 f"{evm_recon_cuda.LAUNCHES}, {mag.shape}, "
+                                 f"{k6}, K7 {k7}, {mag.shape}, "
                                  f"gain {gain}")
         out["s"]["evm_magnify"] = wall
         del clip, mag
@@ -3917,12 +3917,12 @@ def run_app_slice(dev, frames, card: str) -> dict:
 
         # entry(): the fused form (K1) once, equal to measure_green_avg.
         fn, args = tentry.entry()
-        fused_cuda.LAUNCHES = 0
+        reset_counters("k1.launches")
         t0 = time.perf_counter()
         bpm, valid = fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out["launches"]["K1"] = fused_cuda.LAUNCHES
+        out["launches"]["K1"] = counter("k1.launches")
         cfg = PipelineConfig(window_seconds=4.0, acquisition_seconds=2.0)
         _, mbpm, mvalid = offline.measure_green_avg(args[0], 30.0, cfg,
                                                     use_pallas="fused")
@@ -4047,7 +4047,7 @@ def run_farm(dev, card: str) -> dict:
     from vhr_tpu_torch.config import PipelineConfig
     from vhr_tpu_torch.models import mediapipe_face, tflite_exec
     from vhr_tpu_torch.models.skin_detector import SkinDetectorConfig
-    from vhr_tpu_torch.ops import fused_cuda, meshblocks_cuda, roi_means_cuda
+    from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
     from vhr_tpu_torch.parallel import mesh, streams
     from vhr_tpu_torch.utils.realface import real_face_image
 
@@ -4064,17 +4064,17 @@ def run_farm(dev, card: str) -> dict:
     one = mesh.stream_mesh([dev])
     expect = FARM_S * (FARM_T - cfg.acquisition_len(FPS) + 1)
     legs = [("skin", dict(det=SkinDetectorConfig(downsample=4)), "K2",
-             roi_means_cuda, "roi_channel_means_cuda"),
+             "k2.launches", "roi_channel_means_cuda"),
             ("fused", dict(use_fused=True, detect_row_pool=8,
-                           gate_margin=0.15), "K1", fused_cuda,
+                           gate_margin=0.15), "K1", "k1.launches",
              "fused_detect_roi_cuda")]
-    for leg, kw, k, counter, fn_name in legs:
+    for leg, kw, k, key, fn_name in legs:
         # One warm-up call, then the counted and timed one.
         streams.multistream_green_bpm(farm, FPS, places, cfg, **kw)
         torch.cuda.synchronize()
         calls = []
         put_back = spy(streams, fn_name, calls)
-        counter.LAUNCHES = 0
+        reset_counters(key)
         try:
             t0 = time.perf_counter()
             res = streams.multistream_green_bpm(farm, FPS, places, cfg, **kw)
@@ -4082,7 +4082,7 @@ def run_farm(dev, card: str) -> dict:
             wall = time.perf_counter() - t0
         finally:
             put_back()
-        launches = out["launches"][k] = counter.LAUNCHES
+        launches = out["launches"][k] = counter(key)
         ref = streams.multistream_green_bpm(farm, FPS, one, cfg, **kw)
         valid, ok = res.valid, ref.valid
         n_valid = int(valid.sum())
@@ -4136,7 +4136,7 @@ def run_farm(dev, card: str) -> dict:
     torch.cuda.synchronize()
     calls = []
     put_back = spy(tflite_exec, "residual_stage", calls, keep=4)
-    meshblocks_cuda.LAUNCHES = 0
+    reset_counters("k5.launches")
     try:
         t0 = time.perf_counter()
         res = streams.multistream_green_bpm(mp_frames, MP_FARM_FPS, places,
@@ -4145,7 +4145,7 @@ def run_farm(dev, card: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         put_back()
-    out["launches"]["K5"] = meshblocks_cuda.LAUNCHES
+    out["launches"]["K5"] = counter("k5.launches")
     acq = cfg_mp.acquisition_len(MP_FARM_FPS)
     valid = res.valid.cpu().numpy()
     bpm = res.bpm.cpu().numpy()
@@ -4154,11 +4154,11 @@ def run_farm(dev, card: str) -> dict:
                     & (bpm[valid] <= band.high_hz * 60 + 1e-6)).all())
     log(f"[farm mediapipe] {FARM_S} streams x {MP_FARM_T} x {PW}x{PH} of the "
         f"portrait over {FARM_PLACES} places: K5 launches "
-        f"{meshblocks_cuda.LAUNCHES}; {FARM_S * MP_FARM_T / wall:.1f} "
+        f"{counter('k5.launches')}; {FARM_S * MP_FARM_T / wall:.1f} "
         f"frames/s ({wall:.2f} s, {card}); valid after the acquisition "
         f"{int(valid[:, acq - 1:].sum())}/{valid[:, acq - 1:].size}, BPM in "
         f"band {in_band} (median {float(np.median(bpm[valid])):.2f})")
-    if meshblocks_cuda.LAUNCHES < FARM_PLACES or not valid[:, acq - 1:].all() \
+    if counter("k5.launches") < FARM_PLACES or not valid[:, acq - 1:].all() \
             or not in_band:
         raise AssertionError("the MediaPipe farm: K5 not launched in every "
                              "shard, a validity hole or an out-of-band BPM")
@@ -4200,7 +4200,7 @@ def run_long(dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     calls = []
     put_back = spy(vlong, "roi_channel_means_cuda", calls)
-    roi_means_cuda.LAUNCHES = 0
+    reset_counters("k2.launches")
     try:
         t0 = time.perf_counter()
         bpm, ok, _ = vlong.measure_green_avg_sharded(clip, FPS, places, cfg)
@@ -4208,20 +4208,20 @@ def run_long(dev, card: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         put_back()
-    launches = roi_means_cuda.LAUNCHES
+    launches = counter("k2.launches")
     peak = torch.cuda.max_memory_allocated() - base
     t0 = time.perf_counter()
     _, bpm_1d, ok_1d = offline.measure_green_avg(clip, FPS, cfg,
                                                  use_pallas="roi")
     wall_1d = time.perf_counter() - t0
     bpm, ok = bpm.cpu().numpy(), ok.cpu().numpy()
-    roi_means_cuda.LAUNCHES = 0
+    reset_counters("k2.launches")
     t0 = time.perf_counter()
     bpm_bp, ok_bp, _ = vlong.measure_green_avg_sharded(clip, FPS, places,
                                                        cfg, bandpass=True)
     torch.cuda.synchronize()
     wall_bp = time.perf_counter() - t0
-    launches += roi_means_cuda.LAUNCHES
+    launches += counter("k2.launches")
     bpm_bp, ok_bp = bpm_bp.cpu().numpy(), ok_bp.cpu().numpy()
     expect = LONG_T - cfg.acquisition_len(FPS) + 1
     med_bp = float(np.median(bpm_bp[ok_bp])) if ok_bp.any() else math.nan
@@ -4274,13 +4274,11 @@ def run_pool_mesh(dev, use_fused: bool, recorded: list, card: str) -> dict:
                              mesh=mesh.stream_mesh([dev] * FARM_PLACES))
     subj = Subjects(dev, SLOTS, PH, PW, SEED + 4)
     if use_fused:
-        k, counter, attr, fn_name = "K4", fused_cuda, "SLOT_LAUNCHES", \
-            "fused_detect_roi_slots"
+        k, key, fn_name = "K4", "k4.launches", "fused_detect_roi_slots"
     else:
-        k, counter, attr, fn_name = "K2", roi_means_cuda, "LAUNCHES", \
-            "roi_channel_means_cuda"
+        k, key, fn_name = "K2", "k2.launches", "roi_channel_means_cuda"
     calls = []
-    setattr(counter, attr, 0)
+    reset_counters(key)
     t0 = time.perf_counter()
     for t, send, _, outs, _ in pool_ticks(pool, subj, len(recorded)):
         if t == len(recorded) - 2:        # keep the last tick's first call
@@ -4296,7 +4294,7 @@ def run_pool_mesh(dev, use_fused: bool, recorded: list, card: str) -> dict:
     put_back()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = getattr(counter, attr)
+    launches = counter(key)
     form = "fused" if use_fused else "skin"
     log(f"[pool mesh {form}] {SLOTS} slots of {PW}x{PH} over {FARM_PLACES} "
         f"places, {len(recorded)} ticks in {wall:.1f} s ({card}, beside "
@@ -4478,8 +4476,8 @@ def main() -> int:
 
     # 4. The offline measure at the flagship configuration, counters from 0.
     acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
-    roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
-    fused_cuda.LAUNCHES = 0
+    reset_counters("k2.launches", "k2.vec")
+    reset_counters("k1.launches")
 
     def fused_form():
         trace = offline.extract_signals_fused(frames, cfg,
@@ -4501,13 +4499,13 @@ def main() -> int:
     results["roi"] = (offline._fill_invalid(trace.bgr[:, cfg.channel],
                                             trace.valid),) + results["roi"]
     torch.cuda.synchronize()
-    launches = {"K1": fused_cuda.LAUNCHES, "K2": roi_means_cuda.LAUNCHES}
+    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches")}
     log(f"[main] kernel launches in the offline run: {launches}, K2 on the "
-        f"vectorised instance {roi_means_cuda.VEC_LAUNCHES}")
+        f"vectorised instance {counter('k2.vec')}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the offline path never launched: "
                              f"{launches}")
-    if roi_means_cuda.VEC_LAUNCHES != launches["K2"]:
+    if counter("k2.vec") != launches["K2"]:
         raise AssertionError("K2 left the vectorised instance in the "
                              "offline run")
     for form, (green, bpm, valid) in results.items():
@@ -4611,32 +4609,32 @@ def main() -> int:
     # 10. The serving pool, fused then skin-detector ticks, then the fused
     # tick under the adaptive method, then the I420 pool beside a BGR one,
     # counters from 0.
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k4.launches")
     t0 = time.perf_counter()
     fused_pool = run_pool(dev, use_fused=True, record=POOL_MESH_TICKS)
     torch.cuda.synchronize()
-    launches["K4"] = fused_cuda.SLOT_LAUNCHES
+    launches["K4"] = counter("k4.launches")
     log(f"[pool fused] {time.perf_counter() - t0:.1f} s; kernel launches "
         f"K4={launches['K4']}")
     if launches["K4"] < 1:
         raise AssertionError("K4 never launched in the fused pool")
-    roi_means_cuda.LAUNCHES = roi_means_cuda.VEC_LAUNCHES = 0
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k2.launches", "k2.vec")
+    reset_counters("k4.launches")
     t0 = time.perf_counter()
     skin_pool = run_pool(dev, use_fused=False, record=POOL_MESH_TICKS)
     torch.cuda.synchronize()
-    skin_k2 = roi_means_cuda.LAUNCHES
+    skin_k2 = counter("k2.launches")
     log(f"[pool skin] {time.perf_counter() - t0:.1f} s; kernel launches "
-        f"K2={skin_k2} (vectorised {roi_means_cuda.VEC_LAUNCHES}) "
-        f"K4={fused_cuda.SLOT_LAUNCHES}")
-    if skin_k2 < 1 or roi_means_cuda.VEC_LAUNCHES != skin_k2:
+        f"K2={skin_k2} (vectorised {counter('k2.vec')}) "
+        f"K4={counter('k4.launches')}")
+    if skin_k2 < 1 or counter("k2.vec") != skin_k2:
         raise AssertionError("K2 never launched, or left the vectorised "
                              "instance, in the skin-detector pool")
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k4.launches")
     t0 = time.perf_counter()
     run_pool(dev, use_fused=True, method="adaptive")
     torch.cuda.synchronize()
-    adaptive_k4 = fused_cuda.SLOT_LAUNCHES
+    adaptive_k4 = counter("k4.launches")
     log(f"[pool fused adaptive] {time.perf_counter() - t0:.1f} s; kernel "
         f"launches K4={adaptive_k4}")
     if adaptive_k4 < 1:
@@ -4651,17 +4649,17 @@ def main() -> int:
     launches["K2"] += mp_run["launches"]["K2"] + skin_k2
 
     # 11. The front-end, counters from 0: BGR clients, then an I420 one.
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k4.launches")
     served = run_server(dev)
-    log(f"[server] kernel launches K4={fused_cuda.SLOT_LAUNCHES}")
-    if fused_cuda.SLOT_LAUNCHES < 1:
+    log(f"[server] kernel launches K4={counter('k4.launches')}")
+    if counter("k4.launches") < 1:
         raise AssertionError("K4 never launched behind the server")
-    fused_cuda.SLOT_LAUNCHES = 0
+    reset_counters("k4.launches")
     t0 = time.perf_counter()
     run_server_i420(dev)
     log(f"[server i420] {time.perf_counter() - t0:.1f} s; kernel launches "
-        f"K4={fused_cuda.SLOT_LAUNCHES}")
-    if fused_cuda.SLOT_LAUNCHES < 1:
+        f"K4={counter('k4.launches')}")
+    if counter("k4.launches") < 1:
         raise AssertionError("K4 never launched behind the I420 server")
 
     # 12. The apps: the live app and the serving app's client mode.

@@ -34,6 +34,7 @@ from vhr_tpu_torch.models.tflite_exec import (_find_residual_stages,
 from vhr_tpu_torch.ops import (evm_cuda, evm_recon_cuda, fused_cuda,
                                meshblocks_cuda, roi_means_cuda)
 from vhr_tpu_torch.ops.reduce import roi_channel_means
+from vhr_tpu_torch.utils.profiling import counter
 
 
 @pytest.fixture(scope="module")
@@ -76,9 +77,9 @@ def test_k1_matches_plain(gpu_clip, kw):
     are exact sums divided once)."""
     frames = gpu_clip[0]
     carry = fused_cuda.init_carry(frames.device)
-    before = fused_cuda.LAUNCHES
+    before = counter("k1.launches")
     got, got_c = fused_cuda.fused_detect_roi_carry(frames, carry, **kw)
-    assert fused_cuda.LAUNCHES == before + 1
+    assert counter("k1.launches") == before + 1
     want, want_c = fused_cuda.fused_detect_roi_plain(frames, carry, **kw)
     torch.cuda.synchronize()
     _equal(tuple(got) + (got_c,), tuple(want) + (want_c,))
@@ -217,11 +218,11 @@ def test_k4_matches_plain(gpu_clip, kw):
     slots = frames[torch.as_tensor(pick).cuda()].contiguous()
     carry = torch.as_tensor(carry).cuda()
     phase = torch.as_tensor(phase).cuda()
-    before = fused_cuda.SLOT_LAUNCHES
+    before = counter("k4.launches")
     got, got_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase, **kw)
     again, again_c = fused_cuda.fused_detect_roi_slots(slots, carry, phase,
                                                        **kw)
-    assert fused_cuda.SLOT_LAUNCHES == before + 2
+    assert counter("k4.launches") == before + 2
     want, want_c = fused_cuda.fused_detect_roi_slots_plain(slots, carry,
                                                            phase, **kw)
     torch.cuda.synchronize()
@@ -265,9 +266,9 @@ def test_k6_matches_plain(cuda, shape):
     if len(shape) > 3:
         frames = frames[1:]
         T -= 1
-    before = evm_cuda.LAUNCHES
+    before = counter("k6.launches")
     got = evm_cuda.yiq_pyrdown(frames)
-    assert evm_cuda.LAUNCHES == before + 1
+    assert counter("k6.launches") == before + 1
     want = evm_cuda.yiq_pyrdown_plain(frames)
     torch.cuda.synchronize()
     assert got.shape == (T, 3, H // 2, W // 2)
@@ -319,9 +320,9 @@ def test_k7_matches_plain(cuda, layout, amp):
     planar = evm_cuda.to_planar(frames)
     if layout == "planar":
         planar = planar.contiguous()
-    before = evm_recon_cuda.LAUNCHES
+    before = counter("k7.launches")
     got = evm_recon_cuda.evm_reconstruct(planar, band)
-    assert evm_recon_cuda.LAUNCHES == before + 1
+    assert counter("k7.launches") == before + 1
     want = evm_recon_cuda.evm_reconstruct_plain(planar, band)
     torch.cuda.synchronize()
     assert got.stride() == planar.stride()
@@ -356,12 +357,12 @@ def _k7_input(cuda, shape, amp=0.5):
 def test_k7_vector_matches_generic(cuda, shape):
     """The vectorised instance equals the generic one bit for bit."""
     planar, band = _k7_input(cuda, shape)
-    before = evm_recon_cuda.VEC_LAUNCHES
+    before = counter("k7.vec")
     got = evm_recon_cuda.evm_reconstruct(planar, band)
-    assert evm_recon_cuda.VEC_LAUNCHES == before + 1
-    before = evm_recon_cuda.GENERIC_LAUNCHES
+    assert counter("k7.vec") == before + 1
+    before = counter("k7.generic")
     want = evm_recon_cuda.evm_reconstruct(planar, band, instance="generic")
-    assert evm_recon_cuda.GENERIC_LAUNCHES == before + 1
+    assert counter("k7.generic") == before + 1
     torch.cuda.synchronize()
     assert got.stride() == planar.stride() or len(shape) > 5
     assert torch.equal(got, want)
@@ -398,9 +399,9 @@ def test_k7_vector_refuses_other_layouts(cuda):
         planar, band = _k7_input(cuda, shape)
         if shape[2] == 256:
             planar = planar.contiguous()
-        before = evm_recon_cuda.GENERIC_LAUNCHES
+        before = counter("k7.generic")
         evm_recon_cuda.evm_reconstruct(planar, band)
-        assert evm_recon_cuda.GENERIC_LAUNCHES == before + 1
+        assert counter("k7.generic") == before + 1
         with pytest.raises(ValueError):
             evm_recon_cuda.evm_reconstruct(planar, band, instance="vector")
 
@@ -421,16 +422,16 @@ def _k3_rois(rng, T, H, W):
 
 
 def _k3_check(frames, rois, **kw):
-    before = roi_means_cuda.BATCHED_LAUNCHES
+    before = counter("k2.batched")
     got = roi_means_cuda.roi_channel_means_batched_cuda(frames, rois, **kw)
-    assert roi_means_cuda.BATCHED_LAUNCHES == before + 1
+    assert counter("k2.batched") == before + 1
     want = roi_channel_means(frames, rois, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-_COUNTERS = {"vector": "VEC_LAUNCHES", "generic": "GENERIC_LAUNCHES"}
+_COUNTERS = {"vector": "k2.vec", "generic": "k2.generic"}
 
 
 def _instance_check(entry, instance, frames, rois, plain=None, **kw):
@@ -439,10 +440,10 @@ def _instance_check(entry, instance, frames, rois, plain=None, **kw):
     version's bit for bit."""
     fn = (roi_means_cuda.roi_channel_means_cuda if entry == "k2"
           else roi_means_cuda.roi_channel_means_batched_cuda)
-    counter = _COUNTERS[instance]
-    before = getattr(roi_means_cuda, counter)
+    key = _COUNTERS[instance]
+    before = counter(key)
     got = fn(frames, rois, instance=instance, **kw)
-    assert getattr(roi_means_cuda, counter) == before + 1
+    assert counter(key) == before + 1
     want = plain if plain is not None else roi_channel_means(frames, rois,
                                                              **kw)
     torch.cuda.synchronize()
@@ -580,11 +581,11 @@ def test_k2_k3_misaligned_base_takes_generic(cuda):
                            device=cuda)
     for entry in ("k2", "k3"):
         _instance_check(entry, "generic", frames, rois)
-        before = roi_means_cuda.GENERIC_LAUNCHES
+        before = counter("k2.generic")
         fn = (roi_means_cuda.roi_channel_means_cuda if entry == "k2"
               else roi_means_cuda.roi_channel_means_batched_cuda)
         fn(frames, rois)
-        assert roi_means_cuda.GENERIC_LAUNCHES == before + 1
+        assert counter("k2.generic") == before + 1
 
 
 @pytest.mark.gpu
@@ -656,9 +657,9 @@ def k5_close(got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 def _k5_check(x, wts, w_row):
-    before = meshblocks_cuda.LAUNCHES
+    before = counter("k5.launches")
     got = meshblocks_cuda.residual_stage(x, wts, w_row)
-    assert meshblocks_cuda.LAUNCHES == before + 1
+    assert counter("k5.launches") == before + 1
     want = meshblocks_cuda.residual_stage_plain(x, wts, w_row)
     torch.cuda.synchronize()
     assert got.dtype == x.dtype and got.shape == x.shape
@@ -893,13 +894,13 @@ def test_stream_farm_on_four_places_equals_one(cuda, use_fused):
     cfg = PipelineConfig(window_seconds=0.5, acquisition_seconds=0.3)
     kw = (dict(use_fused=True, detect_row_pool=8, gate_margin=0.15)
           if use_fused else dict(det=SkinDetectorConfig(downsample=4)))
-    counter = fused_cuda if use_fused else roi_means_cuda
-    before = counter.LAUNCHES
+    key = "k1.launches" if use_fused else "k2.launches"
+    before = counter(key)
     four = streams.multistream_green_bpm(frames, 30.0,
                                          mesh.stream_mesh([cuda] * 4), cfg,
                                          **kw)
     torch.cuda.synchronize()
-    assert counter.LAUNCHES == before + 4
+    assert counter(key) == before + 4
     one = streams.multistream_green_bpm(frames, 30.0,
                                         mesh.stream_mesh([cuda]), cfg, **kw)
     assert torch.equal(four.valid, one.valid) and bool(four.valid.any())
@@ -926,9 +927,9 @@ def test_k4_pool_on_four_places_equals_one(cuda):
             pool.attach()
     for k in range(src.shape[1]):
         fr = {s: src[s, k] for s in range(8) if not (s == 3 and k % 4 == 0)}
-        before = fused_cuda.SLOT_LAUNCHES
+        before = counter("k4.launches")
         got = sharded.tick(fr)
-        assert fused_cuda.SLOT_LAUNCHES == before + 4
+        assert counter("k4.launches") == before + 4
         want = whole.tick(fr)
         for s in fr:
             for f in want[s]._fields:

@@ -52,11 +52,12 @@ from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch.config import PipelineConfig
 from vhr_tpu_torch.io import video as tvideo
-from vhr_tpu_torch.ops import color, fused_cuda, roi_means_cuda
+from vhr_tpu_torch.ops import color, roi_means_cuda
 from vhr_tpu_torch.ops import roi as troi
 from vhr_tpu_torch.ops import windows as twin
 from vhr_tpu_torch.ops.reduce import roi_channel_means
 from vhr_tpu_torch.pipeline import offline as toffline
+from vhr_tpu_torch.utils.profiling import counter
 
 # One intra-op thread: the suite runs several pytest workers on the
 # host's cores, and more threads a worker oversubscribe them.
@@ -138,10 +139,10 @@ def test_k3_plain_matches_pallas_batched(shape, batch):
     m_ref, c_ref = roi_channel_means_pallas_batched(
         jnp.asarray(frames.reshape(T, H, W * 3)), jnp.asarray(rois),
         batch=batch, row_block=16, interpret=True, channels=3)
-    before = roi_means_cuda.BATCHED_LAUNCHES
+    before = counter("k2.batched")
     m, c = roi_means_cuda.roi_channel_means_batched_cuda(
         torch.as_tensor(frames), torch.as_tensor(rois))
-    assert roi_means_cuda.BATCHED_LAUNCHES == before   # CPU: no launch
+    assert counter("k2.batched") == before   # CPU: no launch
     np.testing.assert_allclose(m.numpy(), np.asarray(m_ref), rtol=1e-5,
                                atol=1e-4)
     np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
@@ -479,11 +480,11 @@ def test_streaming_detect_matches_jax(clips, chunk, detect_every):
     jbgr, jvalid, jfps = joffline.extract_signals_streaming(
         path, JCFG, chunk_frames=chunk, prefer_native=False,
         detect_every=detect_every)
-    before = roi_means_cuda.BATCHED_LAUNCHES
+    before = counter("k2.batched")
     bgr, valid, fps = toffline.extract_signals_streaming(
         path, CFG, chunk_frames=chunk, detect_every=detect_every,
         device="cpu")
-    assert roi_means_cuda.BATCHED_LAUNCHES == before
+    assert counter("k2.batched") == before
     assert fps == jfps == FPS and bgr.dtype == np.float32
     np.testing.assert_array_equal(valid, jvalid)
     np.testing.assert_allclose(bgr, jbgr, **MEANS_TOL)
@@ -504,11 +505,11 @@ def test_streaming_fused_matches_jax(clips, detect_every, gate_margin):
               detect_every=detect_every, gate_margin=gate_margin)
     jbgr, jvalid, _ = joffline.extract_signals_streaming(
         path, JCFG, prefer_native=False, **kw)
-    before = fused_cuda.LAUNCHES
+    before = counter("k1.launches")
     rs = {}
     bgr, valid, _ = toffline.extract_signals_streaming(
         path, CFG, ring_stats=rs, device="cpu", **kw)
-    assert fused_cuda.LAUNCHES == before
+    assert counter("k1.launches") == before
     np.testing.assert_array_equal(valid, jvalid)
     np.testing.assert_allclose(bgr, jbgr, **MEANS_TOL)
     frames, _ = tvideo.read_video(path)

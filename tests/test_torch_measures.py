@@ -32,9 +32,9 @@ from vhr_tpu.pipeline import offline as joffline
 from vhr_tpu.utils.synth import SynthSpec, synthesize
 
 from vhr_tpu_torch import config, validation
-from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
 from vhr_tpu_torch.pipeline import offline
 from vhr_tpu_torch.utils import synth as tsynth
+from vhr_tpu_torch.utils.profiling import counter
 
 # One intra-op thread: the suite runs several pytest workers on the
 # host's cores, and more threads a worker oversubscribe them.
@@ -96,9 +96,9 @@ def _jax(name, *key):
 
 def _run(fn, *args, **kw):
     """Run a port measure on the clip; the CPU launches no kernel."""
-    counts = (roi_means_cuda.LAUNCHES, fused_cuda.LAUNCHES)
+    counts = (counter("k2.launches"), counter("k1.launches"))
     out = fn(torch.as_tensor(_clip()), FPS, *args, **kw)
-    assert (roi_means_cuda.LAUNCHES, fused_cuda.LAUNCHES) == counts
+    assert (counter("k2.launches"), counter("k1.launches")) == counts
     return out
 
 

@@ -45,6 +45,7 @@ from vhr_tpu_torch.models import tflite as ttflite
 from vhr_tpu_torch.models import tflite_exec as texec
 from vhr_tpu_torch.ops import meshblocks_cuda as tmb
 from vhr_tpu_torch.pipeline import offline as toffline
+from vhr_tpu_torch.utils.profiling import counter, reset_counters
 
 # One intra-op thread: the suite runs several pytest workers on the
 # host's cores, and more threads a worker oversubscribe them.
@@ -216,11 +217,11 @@ def test_k5_contract():
         tmb.residual_stage(torch.zeros(1, 16, 96), wts, 8)
     x = torch.as_tensor(np.random.default_rng(1).normal(
         size=(2, 16, 256)).astype(np.float32))
-    tmb.LAUNCHES = 0
+    reset_counters("k5.launches")
     torch.testing.assert_close(tmb.residual_stage(x, wts, 16),
                                tmb.residual_stage_plain(x, wts, 16),
                                rtol=0, atol=0)
-    assert tmb.LAUNCHES == 0
+    assert counter("k5.launches") == 0
     for C, Cm, w_row in [(24, 8, 16), (16, 4, 16), (256, 128, 16)]:
         with pytest.raises(ValueError, match="C = 2 \\* Cm"):
             tmb.check_kernel_shape(C, Cm, w_row)

@@ -30,9 +30,9 @@ from vhr_tpu.validation import cpu_reference_green_avg
 from vhr_tpu_torch.config import BAND_ANALYSIS, PipelineConfig
 from vhr_tpu_torch.dsp import filters as tfilters
 from vhr_tpu_torch.dsp import spectral as tspectral
-from vhr_tpu_torch.ops import fused_cuda, roi_means_cuda
 from vhr_tpu_torch.ops import windows as twin
 from vhr_tpu_torch.pipeline import offline as toffline
+from vhr_tpu_torch.utils.profiling import counter
 
 # One intra-op thread: the suite runs several pytest workers on the
 # host's cores, and more threads a worker oversubscribe them.
@@ -151,7 +151,7 @@ def test_measure_green_avg_matches_jax(synth_clip, jax_measures, use_pallas,
                                        detect_every, ref_key):
     frames = torch.as_tensor(synth_clip.frames)
     jtrace, (jts, jbpm, jvalid) = jax_measures[ref_key]
-    counts = (roi_means_cuda.LAUNCHES, fused_cuda.LAUNCHES)
+    counts = (counter("k2.launches"), counter("k1.launches"))
     trace = toffline.extract_signals(frames, CFG, use_pallas=use_pallas,
                                      detect_every=detect_every)
     np.testing.assert_array_equal(trace.valid.numpy(),
@@ -164,7 +164,7 @@ def test_measure_green_avg_matches_jax(synth_clip, jax_measures, use_pallas,
 
     ts, bpm, valid = toffline.measure_green_avg(
         frames, FPS, CFG, use_pallas=use_pallas, detect_every=detect_every)
-    assert (roi_means_cuda.LAUNCHES, fused_cuda.LAUNCHES) == counts
+    assert (counter("k2.launches"), counter("k1.launches")) == counts
     np.testing.assert_array_equal(ts, jts)
     np.testing.assert_array_equal(valid, jvalid)
     assert valid.sum() > 0.5 * len(valid)

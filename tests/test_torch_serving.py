@@ -36,6 +36,7 @@ from vhr_tpu_torch import interop, serving
 from vhr_tpu_torch.config import ROIConfig
 from vhr_tpu_torch.ops import fused_cuda
 from vhr_tpu_torch.pipeline import live
+from vhr_tpu_torch.utils.profiling import counter
 
 # One intra-op thread: the suite runs several pytest workers on the
 # host's cores, and more threads a worker oversubscribe them.
@@ -114,11 +115,11 @@ def test_k4_plain_matches_pallas(kw):
     ref, ref_c = jfused.fused_detect_roi_slots(
         jnp.asarray(frames), jnp.asarray(carry), jnp.asarray(phase),
         interpret=True, **kw)
-    before = fused_cuda.SLOT_LAUNCHES
+    before = counter("k4.launches")
     got, got_c = fused_cuda.fused_detect_roi_slots(
         torch.as_tensor(frames), torch.as_tensor(carry),
         torch.as_tensor(phase), **kw)
-    assert fused_cuda.SLOT_LAUNCHES == before      # CPU: no kernel launch
+    assert counter("k4.launches") == before      # CPU: no kernel launch
     np.testing.assert_allclose(got.means.numpy(), np.asarray(ref.means),
                                **MEANS_TOL)
     for f in ("count", "boxes", "det_valid", "roi_valid"):

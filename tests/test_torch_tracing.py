@@ -1,0 +1,263 @@
+"""The port's one tracing system (``vhr_tpu_torch/utils/profiling.py``):
+span trees of ``multistream_green_bpm`` in the fused form and with a
+detector, the host's waits on the card counted at their sites, tracing off
+keeping nothing and changing nothing, the counters, ``StageTimer`` and
+``device_trace`` on spans, and (on a CUDA card) the spans on the
+profiler's clock.
+
+The file imports no JAX, so its card case also runs where JAX is not
+installed: ``python -m pytest --noconftest tests/test_torch_tracing.py``.
+"""
+
+import json
+import math
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from vhr_tpu_torch.config import PipelineConfig
+from vhr_tpu_torch.parallel.mesh import stream_mesh
+from vhr_tpu_torch.parallel.streams import multistream_green_bpm
+from vhr_tpu_torch.utils import profiling
+from vhr_tpu_torch.utils.profiling import (StageTimer, count, counter,
+                                           device_trace, reset_counters,
+                                           span, tracing)
+
+FPS = 30.0
+SMALL = PipelineConfig(window_seconds=1.0, acquisition_seconds=0.5)
+
+
+def _frames(S, T, H=64, W=128, seed=0, device="cpu"):
+    """Noise frames with a skin-coloured block that sways, so the skin
+    test finds a box on most frames."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 60, (S, T, H, W, 3), dtype=np.uint8)
+    for t in range(T):
+        y0, x0 = 16 + t % 3, 40 + t % 5
+        x[:, t, y0:y0 + 32, x0:x0 + 40] = (120, 150, 200)   # BGR skin
+    return torch.as_tensor(x, device=device)
+
+
+def _detector(flat):
+    """A stand-in detector: the same box on every frame but every 7th."""
+    n = flat.shape[0]
+    boxes = torch.tensor([40, 16, 80, 48], dtype=torch.int32).repeat(n, 1)
+    valid = torch.arange(n) % 7 != 3
+    return boxes, valid
+
+
+FORMS = {"fused": dict(use_fused=True), "detector": dict(detector=_detector)}
+
+
+def _call(frames, cfg=SMALL, places=1, **kw):
+    return multistream_green_bpm(frames, FPS,
+                                 mesh=stream_mesh(["cpu"] * places),
+                                 cfg=cfg, **kw)
+
+
+def _ramp_waits(cfg):
+    """The waits of one shard's estimate: one a 64-length chunk of the
+    ramp (``ops/windows.py::_ramp_bpm``), the ramp's ``lengths >= 8``
+    mask, the band's frequencies and mask (``dsp/spectral.py``)."""
+    n = cfg.window_len(FPS) - cfg.acquisition_len(FPS) + 1
+    return math.ceil(n / 64) + 1 + 2
+
+
+def _check_tree(spans, request):
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.request == request
+        assert s.end_ns >= s.start_ns
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["vhr.entry"]
+    return by_id
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("places", [1, 2])
+def test_span_tree_of_a_call(form, places):
+    """Each span lies inside its parent, carries its call's request id and
+    has a non-negative own time; ``frames`` and ``recordings`` are the
+    call's; each shard is a ``vhr.shard`` span."""
+    S, T = 2, 48
+    frames = _frames(S, T)
+    with tracing() as tr:
+        _call(frames, places=places, **FORMS[form])
+        _call(frames, places=places, **FORMS[form])
+    requests = sorted({s.request for s in tr.spans})
+    assert len(requests) == 2 and None not in requests
+    for req in requests:
+        mine = [s for s in tr.spans if s.request == req]
+        _check_tree(mine, req)
+        names = {s.name for s in mine}
+        assert {"vhr.entry", "vhr.shard", "vhr.estimate",
+                "vhr.estimate.ramp", "vhr.estimate.steady",
+                "vhr.wait"} <= names
+        if form == "detector":
+            assert {"vhr.detect", "vhr.holdover", "vhr.roi",
+                    "vhr.k2"} <= names
+        entry, = (s for s in mine if s.name == "vhr.entry")
+        assert entry.counts == {"recordings": S, "frames": S * T}
+        shards = [s for s in mine if s.name == "vhr.shard"]
+        assert [s.attrs["streams"] for s in shards] == [S // places] * places
+        assert all(s.parent == entry.id for s in shards)
+        waits = [s for s in mine if s.name == "vhr.wait"]
+        assert len(waits) == places * _ramp_waits(SMALL)
+        assert all(s.attrs["what"] for s in waits)
+    own = tr.self_ns()
+    assert all(v >= 0 for v in own.values())
+    assert tr.counts["frames"] == 2 * S * T
+    assert tr.counts["recordings"] == 2 * S
+    assert tr.counts["waits"] == 2 * places * _ramp_waits(SMALL)
+
+
+def test_waits_at_the_skin_cells_lengths():
+    """The skin cell's window (30 s) and acquisition (10 s) at 30 fps: its
+    waits a call are the count of wait sites on its path, and the same
+    with tracing off (the counter) and on (the spans)."""
+    cfg = PipelineConfig()
+    frames = _frames(1, 960, seed=3)
+    want = _ramp_waits(cfg)
+    assert want == 13
+    before = counter("waits")
+    off = _call(frames, cfg, use_fused=True)
+    assert counter("waits") - before == want
+    with tracing() as tr:
+        on = _call(frames, cfg, use_fused=True)
+    assert tr.counts["waits"] == want
+    assert len([s for s in tr.spans if s.name == "vhr.wait"]) == want
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_off_keeps_nothing_and_changes_nothing(form):
+    """With tracing off no span is kept and ``span`` hands back the shared
+    no-op; the outputs equal a traced call's bit for bit."""
+    frames = _frames(2, 48, seed=5)
+    assert span("vhr.k1", T=1) is span("vhr.entry")
+    off = _call(frames, **FORMS[form])
+    assert profiling._SPANS == [] and not profiling._ON
+    with tracing() as tr:
+        on = _call(frames, **FORMS[form])
+    assert tr.spans and profiling._SPANS == [] and not profiling._ON
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
+def test_counters_and_nested_blocks():
+    """A count goes to the registry always and, while tracing, to the
+    innermost open span; nested blocks see their own spans and totals;
+    each thread has its own stack of open spans."""
+    reset_counters("test.a", "test.b")
+    count("test.a")
+    assert counter("test.a") == 1
+    with tracing() as outer:
+        with span("vhr.outer", k=1) as o:
+            count("test.a", 2)
+            with tracing() as inner:
+                with span("vhr.inner"):
+                    count("test.b", 5)
+            seen = {}
+
+            def other():
+                with span("vhr.thread") as t:
+                    seen["parent"] = t.parent
+                    count("test.b")
+            th = threading.Thread(target=other)
+            th.start()
+            th.join(timeout=30)
+            assert not th.is_alive()
+    assert counter("test.a") == 3 and counter("test.b") == 6
+    assert [s.name for s in inner.spans] == ["vhr.inner"]
+    assert inner.counts == {"test.b": 5}
+    assert {s.name for s in outer.spans} == {"vhr.outer", "vhr.inner",
+                                             "vhr.thread"}
+    assert outer.counts == {"test.a": 2, "test.b": 6}
+    assert o.counts == {"test.a": 2} and o.attrs == {"k": 1}
+    assert seen["parent"] is None
+    in_span = {s.name: s for s in outer.spans}
+    assert in_span["vhr.inner"].parent == o.id
+    assert in_span["vhr.inner"].counts == {"test.b": 5}
+    reset_counters("test.a", "test.b")
+    assert counter("test.a") == counter("test.b") == 0
+
+
+def test_stage_timer_keeps_its_report():
+    """``StageTimer.report()`` keeps its format; each stage is a span."""
+    timer = StageTimer()
+    with tracing() as tr:
+        for _ in range(2):
+            with timer.stage("decode"):
+                pass
+    with timer.stage("step", sync=True):
+        pass
+    rep = timer.report()
+    assert set(rep) == {"decode", "step"}
+    for row in rep.values():
+        assert set(row) == {"total_s", "count", "mean_ms"}
+    assert rep["decode"]["count"] == 2 and rep["step"]["count"] == 1
+    assert [s.name for s in tr.spans] == ["vhr.stage.decode"] * 2
+    assert json.loads(timer.json()) == rep
+
+
+def test_device_trace_holds_the_ports_spans(tmp_path):
+    """``device_trace`` (the apps' ``--profile-trace``) turns tracing on:
+    its Chrome trace holds the port's spans."""
+    with device_trace(str(tmp_path)):
+        _call(_frames(1, 48), use_fused=True)
+    path, = tmp_path.glob("trace_*.json")
+    names = {e.get("name") for e in json.loads(path.read_text())
+             ["traceEvents"]}
+    assert {"vhr.entry", "vhr.shard", "vhr.estimate", "vhr.wait"} <= names
+    assert not profiling._ON
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+def test_spans_on_the_profilers_clock(cuda):
+    """On the card, under ``torch.profiler``: every in-memory ``vhr.*``
+    span starts and ends within 50 us of its profiler range, and
+    ``vhr.k1``'s device annotation holds K1's kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = _frames(2, 256, H=64, W=128, device=cuda)
+    mesh = stream_mesh([cuda])
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for keep in (False, True):             # the first pass warms up
+        with profile(activities=acts) as prof:
+            with tracing() as tr:
+                multistream_green_bpm(frames, FPS, mesh=mesh, cfg=SMALL,
+                                      use_fused=True)
+                torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    host, dev = {}, {}
+    for e in events:
+        a = e.start_ns()
+        side = dev if e.device_type() == DeviceType.CUDA else host
+        side.setdefault(e.name(), []).append((a, a + e.duration_ns()))
+    spans = [s for s in tr.spans if s.name.startswith("vhr.")]
+    assert {"vhr.entry", "vhr.k1", "vhr.wait"} <= {s.name for s in spans}
+    for name in {s.name for s in spans}:
+        mine = sorted((s.start_ns, s.end_ns) for s in spans
+                      if s.name == name)
+        theirs = sorted(host[name])
+        assert len(mine) == len(theirs)
+        for (a, b), (x, y) in zip(mine, theirs):
+            assert abs(a - x) <= 50_000 and abs(b - y) <= 50_000, name
+    k1 = [iv for name, ivs in dev.items() if "pass_kernel" in name
+          for iv in ivs]
+    assert k1 and "vhr.k1" in dev
+    assert any(x <= a and b <= y for a, b in k1 for x, y in dev["vhr.k1"])

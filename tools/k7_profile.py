@@ -166,6 +166,7 @@ def main() -> int:
     from vhr_tpu_torch import _build
     from vhr_tpu_torch.config import EVMConfig
     from vhr_tpu_torch.ops import evm_cuda, evm_recon_cuda as k7
+    from vhr_tpu_torch.utils.profiling import counter
 
     if not torch.cuda.is_available():
         print("k7_profile: needs a CUDA card", file=sys.stderr)
@@ -218,9 +219,9 @@ def main() -> int:
                     planar = evm_cuda.to_planar(x)
                     if layout == "planar":
                         planar = planar.contiguous()
-                    vec = k7.VEC_LAUNCHES
+                    vec = counter("k7.vec")
                     got = k7.evm_reconstruct(planar, b)
-                    vec = k7.VEC_LAUNCHES > vec
+                    vec = counter("k7.vec") > vec
                     again = k7.evm_reconstruct(planar, b)
                     want = k7.evm_reconstruct_plain(planar, b)
                     generic = (k7.evm_reconstruct(planar, b,

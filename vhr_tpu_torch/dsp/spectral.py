@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import HRBand
+from ..utils.profiling import wait
 
 __all__ = ["BPMEstimate", "bpm_peak_from_spectrum", "estimate_bpm",
            "estimate_bpm_multichannel", "estimate_bpm_multichannel_exact",
@@ -52,8 +53,11 @@ def _band_freqs(n: int, fs: float, band: HRBand) -> Tuple[np.ndarray, np.ndarray
 def bpm_peak_from_spectrum(power: torch.Tensor, freqs: np.ndarray,
                            mask: np.ndarray) -> BPMEstimate:
     """Pick the dominant in-band frequency from a ``(..., F)`` power tensor."""
-    freqs_t = torch.as_tensor(freqs, dtype=power.dtype, device=power.device)
-    mask_t = torch.as_tensor(mask, device=power.device)
+    with wait("band freqs"):
+        freqs_t = torch.as_tensor(freqs, dtype=power.dtype,
+                                  device=power.device)
+    with wait("band mask"):
+        mask_t = torch.as_tensor(mask, device=power.device)
     banded = torch.where(mask_t, power,
                          torch.full_like(power, float("-inf")))
     idx = torch.argmax(banded, dim=-1)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import float32_exact, resolve_device
+from ..utils.profiling import span, wait
 
 __all__ = ["blazeface_anchors", "load_face_models", "detect_faces_mp",
            "face_landmarks", "make_mediapipe_detector",
@@ -174,8 +175,10 @@ def _letterbox(frames_bgr_u8: torch.Tensor, size: int, lo: float, hi: float,
     T, H, W, _ = frames_bgr_u8.shape
     dev = frames_bgr_u8.device
     scale, h2, w2, pad_x, pad_y = _letterbox_geometry(H, W, size)
-    ax = torch.as_tensor(_resize_matrix(W, w2), device=dev).to(dtype)
-    ay = torch.as_tensor(_resize_matrix(H, h2), device=dev).to(dtype)
+    with wait("letterbox x matrix"):
+        ax = torch.as_tensor(_resize_matrix(W, w2), device=dev).to(dtype)
+    with wait("letterbox y matrix"):
+        ay = torch.as_tensor(_resize_matrix(H, h2), device=dev).to(dtype)
     with float32_exact():
         bgr = frames_bgr_u8.to(dtype)
         tmp = torch.einsum("thwc,mw->thmc", bgr, ax)     # (T, H, w2, 3)
@@ -380,14 +383,19 @@ def detect_faces_mp(params: MediaPipeFaceParams, det_apply, frames,
     (rects, scores (T, K), ok (T, K)) — rotated square ROIs in image px."""
     T, H, W, _ = frames.shape
     io = det_apply.io_dtype or torch.float32
-    anchors = torch.as_tensor(blazeface_anchors(), device=frames.device)
+    with wait("anchors"):
+        anchors = torch.as_tensor(blazeface_anchors(), device=frames.device)
     outs = []
     with torch.no_grad():
         for sl in _slices(T):
-            x = _letterbox(frames[sl], _DET_SIZE, -1.0, 1.0, dtype=io)
-            reg, cls = det_apply(params.det, x)          # (t,896,16),(t,896,1)
-            boxes, scores, kps = _decode_detections(reg, cls, anchors)
-            outs.append(_weighted_nms(boxes, scores, kps, k_faces))
+            t = sl.stop - sl.start
+            with span("vhr.det.letterbox", frames=t):
+                x = _letterbox(frames[sl], _DET_SIZE, -1.0, 1.0, dtype=io)
+            with span("vhr.det.net", frames=t):
+                reg, cls = det_apply(params.det, x)      # (t,896,16),(t,896,1)
+            with span("vhr.det.nms", frames=t):
+                boxes, scores, kps = _decode_detections(reg, cls, anchors)
+                outs.append(_weighted_nms(boxes, scores, kps, k_faces))
     b, s, kp, ok = (torch.cat(parts) for parts in zip(*outs))
     rects = _detection_to_rect(b, kp, H, W)              # fields (T, K)
     return rects, s, ok
@@ -407,14 +415,16 @@ def face_landmarks(params: MediaPipeFaceParams, lm_apply, frames, rects,
     lms, pres = [], []
     with torch.no_grad():
         for sl in _slices(T):
-            rs = _Rect(*(f[sl] for f in rects))
-            crops = _crop_faces(frames[sl], rs, _LM_SIZE, mode=crop_mode,
-                                dtype=io)                # (t, K, 256, 256, 3)
-            t = crops.shape[0]
-            out = lm_apply(params.lm, crops.reshape(t * K, _LM_SIZE,
-                                                    _LM_SIZE, 3))
-            lms.append(out[0].reshape(t, K, 478, 3))
-            pres.append(torch.sigmoid(out[1].reshape(t, K)))
+            t = sl.stop - sl.start
+            with span("vhr.mesh.crop", frames=t):
+                rs = _Rect(*(f[sl] for f in rects))
+                crops = _crop_faces(frames[sl], rs, _LM_SIZE, mode=crop_mode,
+                                    dtype=io)            # (t, K, 256, 256, 3)
+            with span("vhr.mesh.net", frames=t):
+                out = lm_apply(params.lm, crops.reshape(t * K, _LM_SIZE,
+                                                        _LM_SIZE, 3))
+                lms.append(out[0].reshape(t, K, 478, 3))
+                pres.append(torch.sigmoid(out[1].reshape(t, K)))
     lm, presence = torch.cat(lms), torch.cat(pres)
     return _project_landmarks(lm, rects), presence
 

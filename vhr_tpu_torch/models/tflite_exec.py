@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..device import float32_exact, resolve_device
 from ..ops.meshblocks_cuda import (StageWeights, pack_stage_weights,
                                    residual_stage)
+from ..utils.profiling import count, span
 from .tflite import Operator, Subgraph, Tensor
 
 __all__ = ["fold_dequantize", "build_torch", "const_inputs",
@@ -213,6 +214,8 @@ class TFLiteExecutor(torch.nn.Module):
             else activation_dtype
         outputs = set(graph.outputs)
         last: Dict[int, int] = {}
+        # Ops a forward dispatches: each op, each fused stage as one.
+        self.n_dispatch = 0
         op_i = 0
         while op_i < len(graph.operators):
             st = stages.get(op_i)
@@ -222,6 +225,7 @@ class TFLiteExecutor(torch.nn.Module):
                 if t >= 0 and graph.tensors[t].data is None:
                     last[t] = op_i
             op_i += st["n_ops"] if st is not None else 1
+            self.n_dispatch += 1
         self.drop_after: Dict[int, List[int]] = {}
         for t, i in last.items():
             if t not in outputs:
@@ -279,8 +283,9 @@ class TFLiteExecutor(torch.nn.Module):
                 B, C, H, W = xin.shape
                 wts = StageWeights(*(params[f"_fs{op_i}_{f_i}"]
                                      for f_i in range(9)))
-                y = residual_stage(xin.reshape(B, C, H * W).contiguous(),
-                                   wts, W)
+                with span("vhr.k5", B=B, C=C, S=H * W):
+                    y = residual_stage(xin.reshape(B, C, H * W).contiguous(),
+                                       wts, W)
                 env[st["out_tensor"]] = y.reshape(B, C, H, W)
                 done, op_i = op_i, op_i + st["n_ops"]
             else:
@@ -293,6 +298,7 @@ class TFLiteExecutor(torch.nn.Module):
         for i in g.outputs:
             y = env[i].to(torch.float32)
             outs.append(y.permute(0, 2, 3, 1) if y.dim() == 4 else y)
+        count("exec.ops", self.n_dispatch)
         return tuple(outs)
 
     def _op(self, op, get, tensors):

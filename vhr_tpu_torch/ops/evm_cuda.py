@@ -18,13 +18,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 from . import color
 
 __all__ = ["yiq_pyrdown", "yiq_pyrdown_plain", "to_planar", "k6_geometry",
-           "copy_width", "K6Geometry", "KERNEL_SHAPE", "LAUNCHES"]
-
-# Kernel launches made by yiq_pyrdown (CUDA tensors only).
-LAUNCHES = 0
+           "copy_width", "K6Geometry", "KERNEL_SHAPE"]
 
 # K6's launch shape.  ``csrc/evm_pyrdown.cu`` is compiled with the same
 # numbers and refuses a launch that disagrees.  A thread block owns a strip
@@ -140,8 +138,7 @@ def yiq_pyrdown(frames: torch.Tensor) -> torch.Tensor:
     geo = k6_geometry(T, H, W, frames.data_ptr())
     lib = _build.library()
     stream = torch.cuda.current_stream(frames.device).cuda_stream
-    global LAUNCHES
-    LAUNCHES += 1
+    count("k6.launches")          # CUDA tensors only
     _build.check(lib.vhr_yiq_pyrdown(
         frames.data_ptr(), out.data_ptr(), T, H, W, geo.copy_bytes,
         KERNEL_SHAPE["strip_cols"], KERNEL_SHAPE["warps"], geo.ring_rows,

@@ -24,18 +24,13 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 from . import color
 from .evm_cuda import U8_SCALE
 
 __all__ = ["evm_reconstruct", "evm_reconstruct_plain", "resize_matrix",
            "upsample", "k7_geometry", "k7_instance", "K7Geometry",
-           "KERNEL_SHAPE", "LAUNCHES", "VEC_LAUNCHES", "GENERIC_LAUNCHES"]
-
-# Kernel launches made by evm_reconstruct (CUDA tensors only), in all and
-# by instance.
-LAUNCHES = 0
-VEC_LAUNCHES = 0
-GENERIC_LAUNCHES = 0
+           "KERNEL_SHAPE"]
 
 # The vectorised instance's launch shape.  ``csrc/evm_recon.cu`` is
 # compiled with the same strip, pass, ring and pitch and refuses a launch
@@ -232,12 +227,9 @@ def evm_reconstruct(planar: torch.Tensor, band: torch.Tensor,
     h_tab = _tables(wb, W, planar.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(planar.device).cuda_stream
-    global LAUNCHES, VEC_LAUNCHES, GENERIC_LAUNCHES
-    LAUNCHES += 1
-    if choice == "vector":
-        VEC_LAUNCHES += 1
-    else:
-        GENERIC_LAUNCHES += 1
+    # Launches (CUDA tensors only), in all and by instance.
+    count("k7.launches")
+    count("k7.vec" if choice == "vector" else "k7.generic")
     _build.check(lib.vhr_evm_reconstruct(
         planar.data_ptr(), *planar.stride(), out.data_ptr(), *out.stride(),
         band.data_ptr(), *(a.data_ptr() for a in v_tab),

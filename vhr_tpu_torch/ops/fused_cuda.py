@@ -25,18 +25,14 @@ import torch
 from .. import _build
 from ..config import ROIConfig
 from ..models.skin_detector import SkinDetectorConfig, ycbcr_from_bgr
+from ..utils import profiling
 from .reduce import roi_channel_means
 from .roi_means_cuda import INSTANCES, alignment, roi_plan, sm_count
 
 __all__ = ["FusedResult", "init_carry", "fused_detect_roi_carry",
            "fused_detect_roi_cuda", "fused_detect_roi_plain",
            "fused_detect_roi_slots", "fused_detect_roi_slots_plain",
-           "skin_instance", "SKIN_INSTANCES", "LAUNCHES", "SLOT_LAUNCHES"]
-
-# Kernel launches made by fused_detect_roi_carry (K1) and
-# fused_detect_roi_slots (K4), CUDA tensors only.
-LAUNCHES = 0
-SLOT_LAUNCHES = 0
+           "skin_instance", "SKIN_INSTANCES"]
 
 # Frames per step of the plain version's vectorised skin test.
 _FRAME_CHUNK = 32
@@ -318,20 +314,22 @@ def fused_detect_roi_carry(frames: torch.Tensor, carry: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     # The frames' ready counts, zero before the launch and after it.
     ready = _zero_scratch(dev, stream, t_len)
-    global LAUNCHES
-    LAUNCHES += 1
-    err = lib.vhr_fused_detect_roi(
-        frames.data_ptr(), t_start, t_len, g.phase0, g.H, g.W, g.rb,
-        g.n_chunks, detect_row_pool, detect_every, seq_len or 0,
-        int(gate_margin is not None),
-        0.0 if gate_margin is None else gate_margin, rescan_every,
-        float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
-        det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
-        roi.landmark_hold_frames, SKIN_INSTANCES.index(skin),
-        INSTANCES.index(plan.instance), plan.bands, plan.threads, plan.grid,
-        carry.data_ptr(), carry_out.data_ptr(), summary.data_ptr(),
-        ready.data_ptr(), rois.data_ptr(), boxes.data_ptr(),
-        flags.data_ptr(), means.data_ptr(), count.data_ptr(), stream)
+    with profiling.span("vhr.k1", T=t_len, H=g.H, W=g.W,
+                        pool=detect_row_pool):
+        profiling.count("k1.launches")
+        err = lib.vhr_fused_detect_roi(
+            frames.data_ptr(), t_start, t_len, g.phase0, g.H, g.W, g.rb,
+            g.n_chunks, detect_row_pool, detect_every, seq_len or 0,
+            int(gate_margin is not None),
+            0.0 if gate_margin is None else gate_margin, rescan_every,
+            float(g.min_area), det.cb_min, det.cb_max, det.cr_min,
+            det.cr_max, det.y_min, roi.cheek_horizontal, roi.cheek_top,
+            roi.cheek_bottom, roi.landmark_hold_frames,
+            SKIN_INSTANCES.index(skin), INSTANCES.index(plan.instance),
+            plan.bands, plan.threads, plan.grid, carry.data_ptr(),
+            carry_out.data_ptr(), summary.data_ptr(), ready.data_ptr(),
+            rois.data_ptr(), boxes.data_ptr(), flags.data_ptr(),
+            means.data_ptr(), count.data_ptr(), stream)
     _build.check(err, "fused_detect_roi_carry")
     res = FusedResult(means=means, count=count, boxes=boxes,
                       det_valid=flags[:, 0] > 0, roi_valid=flags[:, 1] > 0)
@@ -468,8 +466,7 @@ def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _zero_scratch(dev, stream, S * (7 + g.W // 16 + g.H))
-    global SLOT_LAUNCHES
-    SLOT_LAUNCHES += 1
+    profiling.count("k4.launches")          # CUDA tensors only
     err = lib.vhr_fused_detect_roi_slots(
         frames.data_ptr(), S, g.H, g.W, g.rb, detect_row_pool, detect_every,
         int(gate_margin is not None),

@@ -31,13 +31,11 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..device import float32_exact
+from ..utils.profiling import count
 
 __all__ = ["StageWeights", "pack_stage_weights", "residual_stage",
            "residual_stage_plain", "stage_rows", "plane_stride",
-           "weight_floats", "band_rows", "check_kernel_shape", "LAUNCHES"]
-
-# Kernel launches made by residual_stage (CUDA tensors only).
-LAUNCHES = 0
+           "weight_floats", "band_rows", "check_kernel_shape"]
 
 _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 # Mid widths Cm the kernel is compiled for (C = 2 * Cm, the face-mesh net's
@@ -227,8 +225,7 @@ def residual_stage(x: torch.Tensor, wts: StageWeights,
     out = torch.empty_like(x)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    global LAUNCHES
-    LAUNCHES += 1
+    count("k5.launches")          # CUDA tensors only
     _build.check(lib.vhr_residual_stage(
         x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
         *(w.data_ptr() for w in wts), B, C, Cm, H, w_row, N, rows, stride,

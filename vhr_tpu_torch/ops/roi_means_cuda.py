@@ -23,22 +23,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .reduce import frame_layout, roi_channel_means
 
 __all__ = ["roi_channel_means_cuda", "roi_channel_means_batched_cuda",
            "roi_plan", "plan_bands", "RoiPlan", "group_bytes", "alignment",
            "sm_count",
            "INSTANCES", "MAX_BANDS", "VEC_THREADS", "GENERIC_THREADS",
-           "GENERIC_FRAMES", "LAUNCHES", "BATCHED_LAUNCHES", "VEC_LAUNCHES",
-           "GENERIC_LAUNCHES"]
-
-# Kernel launches made by roi_channel_means_cuda (K2) and
-# roi_channel_means_batched_cuda (K3), CUDA tensors only; and by instance,
-# over both.
-LAUNCHES = 0
-BATCHED_LAUNCHES = 0
-VEC_LAUNCHES = 0
-GENERIC_LAUNCHES = 0
+           "GENERIC_FRAMES"]
 
 # ``csrc/roi_means.cu`` is compiled for these and refuses another plan.
 # The C entries number the instances by their index here.
@@ -147,15 +139,13 @@ def roi_plan(T: int, H: int, W: int, C: int, frame_stride: int,
 def _launch(entry: str, frames: torch.Tensor, rois: torch.Tensor,
             plan: RoiPlan, lead: tuple, T: int, H: int, W: int, C: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global VEC_LAUNCHES, GENERIC_LAUNCHES
     means = torch.empty((T, C), dtype=torch.float32, device=frames.device)
     count = torch.empty((T,), dtype=torch.float32, device=frames.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(frames.device).cuda_stream
-    if plan.instance == "vector":
-        VEC_LAUNCHES += 1
-    else:
-        GENERIC_LAUNCHES += 1
+    # Launches of K2 and K3 by instance (``k2.launches`` and
+    # ``k2.batched`` count each entry's).
+    profiling.count("k2.vec" if plan.instance == "vector" else "k2.generic")
     _build.check(getattr(lib, entry)(
         *lead, means.data_ptr(), count.data_ptr(), T, H, W, C,
         INSTANCES.index(plan.instance), plan.bands, plan.threads, plan.grid,
@@ -195,8 +185,7 @@ def roi_channel_means_cuda(frames: torch.Tensor, rois: torch.Tensor,
                     alignment(frames.data_ptr()),
                     sm_count(frames.device.index or 0), instance)
     rois = rois.to(device=frames.device, dtype=torch.int32).contiguous()
-    global LAUNCHES
-    LAUNCHES += 1
+    profiling.count("k2.launches")          # CUDA tensors only
     return _launch("vhr_roi_means_u8", frames, rois, plan,
                    (frames.data_ptr(), rois.data_ptr(), None, 0), T, H, W, C)
 
@@ -242,8 +231,7 @@ def roi_channel_means_batched_cuda(frames: torch.Tensor, rois: torch.Tensor,
                     alignment(frames.data_ptr()),
                     sm_count(frames.device.index or 0), instance)
     rois = rois.to(device=frames.device, dtype=torch.int32).contiguous()
-    global BATCHED_LAUNCHES
-    BATCHED_LAUNCHES += 1
+    profiling.count("k2.batched")           # CUDA tensors only
     return _launch("vhr_roi_means_batched_u8", frames, rois, plan,
                    (frames.data_ptr(), frames.stride(0), frames.stride(1),
                     rois.data_ptr()), T, H, W, C)

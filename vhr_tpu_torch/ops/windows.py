@@ -18,6 +18,7 @@ import torch
 
 from ..config import HRBand
 from ..dsp import spectral
+from ..utils.profiling import span, wait
 
 __all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft",
            "rolling_bpm_welch", "rolling_bpm", "rolling_band_snr"]
@@ -54,8 +55,9 @@ def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
     k = torch.arange(k_max + 1, dtype=dt, device=dev)
     bpms, valids = [], []
     for s in range(0, len(lengths), chunk):
-        N = torch.as_tensor(lengths[s:s + chunk], dtype=dt,
-                            device=dev)[:, None]                  # (B, 1)
+        with wait("ramp lengths"):
+            N = torch.as_tensor(lengths[s:s + chunk], dtype=dt,
+                                device=dev)[:, None]              # (B, 1)
         Nb = N.reshape((-1,) + bdims + (1,))                      # (B, 1*, 1)
         keep = n < Nb                                              # (B,1*,n)
         mean = torch.where(keep, xs, 0.0).sum(-1, keepdim=True) / Nb
@@ -115,20 +117,23 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
     ramp_end = min(window_len - 1, T - 1)
     if ramp_end >= first:
         lengths = np.arange(first + 1, ramp_end + 2)
-        r_bpm, r_valid = _ramp_bpm(x, fps, band, lengths)
-        # The reference's estimate_bpm returns None for N < 8.
-        r_valid = r_valid & torch.as_tensor(
-            lengths >= 8, device=x.device).reshape(
+        with span("vhr.estimate.ramp", lengths=len(lengths)):
+            r_bpm, r_valid = _ramp_bpm(x, fps, band, lengths)
+            # The reference's estimate_bpm returns None for N < 8.
+            with wait("ramp mask"):
+                long_enough = torch.as_tensor(lengths >= 8, device=x.device)
+            r_valid = r_valid & long_enough.reshape(
                 (-1,) + (1,) * (x.dim() - 1))
-        bpm[first:ramp_end + 1] = r_bpm
-        valid[first:ramp_end + 1] = r_valid
+            bpm[first:ramp_end + 1] = r_bpm
+            valid[first:ramp_end + 1] = r_valid
 
     if T >= window_len:
-        wins = _windows_last(x, window_len)                    # (T-W+1,*b,W)
-        wins = wins - wins.mean(-1, keepdim=True)
-        est = spectral.estimate_bpm(wins, fps, band)
-        bpm[window_len - 1:] = est.bpm
-        valid[window_len - 1:] = est.valid & (window_len >= 8)
+        with span("vhr.estimate.steady", windows=T - window_len + 1):
+            wins = _windows_last(x, window_len)                # (T-W+1,*b,W)
+            wins = wins - wins.mean(-1, keepdim=True)
+            est = spectral.estimate_bpm(wins, fps, band)
+            bpm[window_len - 1:] = est.bpm
+            valid[window_len - 1:] = est.valid & (window_len >= 8)
 
     return RollingBPM(bpm=bpm, valid=valid)
 

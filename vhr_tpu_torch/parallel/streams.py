@@ -37,6 +37,7 @@ from ..ops import windows as vwin
 from ..ops.fused_cuda import fused_detect_roi_cuda
 from ..ops.roi_means_cuda import roi_channel_means_cuda
 from ..pipeline.offline import _fill_invalid
+from ..utils.profiling import count, request, span
 from .mesh import Mesh, gather, local_shards
 
 __all__ = ["multistream_green_bpm", "MultiStreamResult"]
@@ -52,11 +53,13 @@ def _estimate(means: torch.Tensor, valid: torch.Tensor, fps: float,
               cfg: PipelineConfig):
     """``(S, T, 3)`` means and ``(S, T)`` track validity -> ``(bpm, valid,
     green)``, each ``(S, T)``: the shard's streams as one batch."""
-    green = _fill_invalid(means[..., cfg.channel].T.contiguous(),
-                          valid.T.contiguous())                   # (T, S)
-    rolling = vwin.rolling_bpm_fft(green, fps, cfg.band, cfg.window_len(fps),
-                                   cfg.acquisition_len(fps))
-    return rolling.bpm.T, (rolling.valid & valid.T).T, green.T
+    with span("vhr.estimate"):
+        green = _fill_invalid(means[..., cfg.channel].T.contiguous(),
+                              valid.T.contiguous())               # (T, S)
+        rolling = vwin.rolling_bpm_fft(green, fps, cfg.band,
+                                       cfg.window_len(fps),
+                                       cfg.acquisition_len(fps))
+        return rolling.bpm.T, (rolling.valid & valid.T).T, green.T
 
 
 def _shard(frames: torch.Tensor, fps: float, cfg: PipelineConfig,
@@ -64,19 +67,24 @@ def _shard(frames: torch.Tensor, fps: float, cfg: PipelineConfig,
     """One shard ``(S_local, T, H, W, 3)`` of the skin or detector form."""
     S, T, H, W, _ = frames.shape
     flat = frames.reshape(S * T, H, W, 3)
-    if detector is not None:
-        boxes, valid = detector(flat)
-    else:
-        boxes, valid = skin_detector.detect_faces(flat, det)
+    with span("vhr.detect"):
+        if detector is not None:
+            boxes, valid = detector(flat)
+        else:
+            boxes, valid = skin_detector.detect_faces(flat, det)
     boxes = boxes.to(torch.int32).reshape(S, T, 4)
     valid = valid.to(torch.bool).reshape(S, T)
-    tracks = [vroi.holdover(boxes[s], valid[s],
-                            cfg.roi.landmark_hold_frames) for s in range(S)]
-    tbox = torch.stack([t.box for t in tracks]).reshape(S * T, 4)
-    tvalid = torch.stack([t.valid for t in tracks])
-    rois = vroi.cheek_roi(tbox, cfg.roi, W, H)
-    rois = torch.where(tvalid.reshape(-1, 1), rois, 0)
-    means, _ = roi_channel_means_cuda(flat, rois)
+    with span("vhr.holdover"):
+        tracks = [vroi.holdover(boxes[s], valid[s],
+                                cfg.roi.landmark_hold_frames)
+                  for s in range(S)]
+        tbox = torch.stack([t.box for t in tracks]).reshape(S * T, 4)
+        tvalid = torch.stack([t.valid for t in tracks])
+    with span("vhr.roi"):
+        rois = vroi.cheek_roi(tbox, cfg.roi, W, H)
+        rois = torch.where(tvalid.reshape(-1, 1), rois, 0)
+    with span("vhr.k2"):
+        means, _ = roi_channel_means_cuda(flat, rois)
     return _estimate(means.reshape(S, T, 3), tvalid, fps, cfg)
 
 
@@ -122,12 +130,17 @@ def multistream_green_bpm(frames: Union[torch.Tensor,
     if use_fused and detector is not None:
         raise ValueError("use_fused=True embeds its own detection; "
                          "pass detector=None")
-    parts = []
-    for fr in local_shards(frames, mesh, "stream"):
-        if use_fused:
-            parts.append(_shard_fused(fr, fps, cfg, det, detect_row_pool,
-                                      gate_margin))
-        else:
-            parts.append(_shard(fr, fps, cfg, det, detector))
-    return MultiStreamResult(*(gather([p[i] for p in parts])
-                               for i in range(3)))
+    with request("vhr.entry"):
+        shards = local_shards(frames, mesh, "stream")
+        count("recordings", sum(fr.shape[0] for fr in shards))
+        count("frames", sum(fr.shape[0] * fr.shape[1] for fr in shards))
+        parts = []
+        for fr in shards:
+            with span("vhr.shard", streams=fr.shape[0]):
+                if use_fused:
+                    parts.append(_shard_fused(fr, fps, cfg, det,
+                                              detect_row_pool, gate_margin))
+                else:
+                    parts.append(_shard(fr, fps, cfg, det, detector))
+        return MultiStreamResult(*(gather([p[i] for p in parts])
+                                   for i in range(3)))
