@@ -24,7 +24,10 @@ Phases, each of which must pass (any failure exits non-zero):
    right and bottom edge) and random phases over the same knobs, and
    with a long ROI that runs into a chunk the gate leaves out; integer
    outputs must be equal, means within ``rtol=1e-6`` (K1's and K4's
-   equal);
+   equal); the acquisition ramp's kernel (``csrc/ramp_dft.cu``, one
+   launch) on 8 traces of 960 frames at the skin cell's lengths (300 to
+   900): valid equal, bpm equal but where the plain version's top two
+   in-band magnitudes lie within a relative 1e-5;
 4. the offline green-channel measure at the flagship configuration (30 s
    window / 10 s acquisition) in both forms — fused (K1,
    ``detect_row_pool=8``) and detect-then-reduce with the K2 ROI kernel:
@@ -351,7 +354,8 @@ measure, the degradation sweep and ``evm_magnify``, K7's in ``magnify``
 and ``evm_magnify``; K1's also ``entry()``'s and the fused farm's.  K2's time is at 1080p x 960, and its time
 at the skin pool's 64 x 720p slots and K3's on a 256-frame chunk are
 logged with their bounds.
-The line before the last is the kernels' JSON record: per kernel its time
+The line before the last is the kernels' JSON record: per kernel (K1 to
+K7, then the ramp's, which replaces no TPU kernel) its time
 and its plain version's, and ``bound_ms``, the least time the card could
 take for the same work: the larger of the bytes it must move (inputs read
 once, outputs written once; for the ROI kernels the ROI bytes of this run's
@@ -489,6 +493,12 @@ DUO_LEARNED_TOL, LEARNED_LIVE_T, LANDMARK_F32_TOL = 5.0, 600, 1e-4
 TRAIN_STEPS, TRAIN_FALL, TRAIN_PROFILED = 150, 0.8, 20
 FT_STEPS, FT_EVAL_CLIPS, FT_IOU_MIN = 30, 12, 0.8
 TP_F32_TOL, TP_PARAM_TOL, TP_BF16_TOL = 1e-5, 1e-6, 1e-2
+# The acquisition ramp's kernel (csrc/ramp_dft.cu) at the skin cell's
+# shapes: RAMP_S recordings of T frames, PipelineConfig's windows.  Its bpm
+# equals the plain version's but where the plain version's top two in-band
+# magnitudes lie within RAMP_TIE_RTOL of each other (the sums run in
+# another order); valid equals it.
+RAMP_S, RAMP_TIE_RTOL = 8, 1e-5
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, float32 operations/s on the CUDA cores, and dense TF32
 # operations/s on the tensor cores.
@@ -696,6 +706,66 @@ def roi_bytes(rois, h: int, w: int, c: int = 3) -> int:
     x2, y2 = rois[:, 2].clamp(0, w), rois[:, 3].clamp(0, h)
     area = (x2 - x1).clamp(min=0).long() * (y2 - y1).clamp(min=0).long()
     return int(area.sum()) * c
+
+
+def ramp_traces(dev, s: int, seed: int = SEED):
+    """``(T, s)`` float32 green traces on ``dev``: 50-170 BPM pulses on a
+    level of 100 with noise, seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None] / FPS
+    x = (np.sin(2 * np.pi * rng.uniform(50.0, 170.0, s) / 60.0 * t)
+         + 0.8 * rng.normal(size=(T, s)) + 100.0)
+    return torch.as_tensor(x.astype(np.float32), device=dev)
+
+
+def ramp_pairs(fps: float, band, n_first: int, n_last: int) -> int:
+    """The in-band ``(k, n)`` pairs of the ramp's lengths: the angles the
+    kernel evaluates, each multiplied into every stream twice."""
+    import numpy as np
+
+    k_max = int(np.floor(band.high_hz * n_last / fps))
+    N = np.arange(n_first, n_last + 1, dtype=np.float32)[:, None]
+    k = np.arange(k_max + 1, dtype=np.float32)[None]
+    freq = k * (np.float32(fps) / N)
+    mask = ((freq >= np.float32(band.low_hz))
+            & (freq <= np.float32(band.high_hz)) & (k >= 1)
+            & (k <= np.floor((N - 1) / 2)))
+    return int((mask.sum(1) * N[:, 0]).sum())
+
+
+def check_ramp(dev, cfg) -> dict:
+    """The ramp kernel against its plain version at the skin cell's shapes,
+    one launch: valid equal, bpm equal but at the plain version's near
+    ties.  Returns the traces, the lengths and the largest bpm gap."""
+    import torch
+    from vhr_tpu_torch.ops import windows as vwin
+
+    x = ramp_traces(dev, RAMP_S)
+    n_first, n_last = cfg.acquisition_len(FPS), cfg.window_len(FPS)
+    before = counter("ramp.launches")
+    bpm, valid = vwin.ramp_bpm(x, FPS, cfg.band, n_first, n_last)
+    if counter("ramp.launches") != before + 1:
+        raise AssertionError("the ramp took another route than one launch")
+    want_bpm, want_valid = vwin._ramp_bpm(x, FPS, cfg.band, n_first, n_last)
+    torch.cuda.synchronize()
+    if not torch.equal(valid, want_valid):
+        raise AssertionError("ramp kernel: valid differs from plain")
+    differ = bpm != want_bpm
+    if differ.any():
+        ties = vwin._ramp_near_ties(x, FPS, cfg.band, n_first, n_last,
+                                    RAMP_TIE_RTOL)
+        if not bool(ties[differ].all()):
+            raise AssertionError("ramp kernel: bpm differs from plain away "
+                                 "from a near tie")
+    err = float((bpm - want_bpm).abs().max())
+    log(f"[check] ramp kernel == plain at {T} x {RAMP_S} traces, lengths "
+        f"{n_first}..{n_last}: valid equal ({int(valid.sum())} valid), bpm "
+        f"equal on {int((~differ).sum())} of {differ.numel()}, the rest at "
+        f"near ties (largest gap {err:g} BPM)")
+    return {"x": x, "n_first": n_first, "n_last": n_last, "err": err}
 
 
 def u8_diff(got, want):
@@ -4473,11 +4543,12 @@ def main() -> int:
             f"{int(got.roi_valid.sum())}/{n}")
         x = buf = None
     k4_err = check_k4(dev)
+    ramp = check_ramp(dev, cfg)
 
     # 4. The offline measure at the flagship configuration, counters from 0.
     acq, win = cfg.acquisition_len(FPS), cfg.window_len(FPS)
     reset_counters("k2.launches", "k2.vec")
-    reset_counters("k1.launches")
+    reset_counters("k1.launches", "ramp.launches")
 
     def fused_form():
         trace = offline.extract_signals_fused(frames, cfg,
@@ -4499,7 +4570,8 @@ def main() -> int:
     results["roi"] = (offline._fill_invalid(trace.bgr[:, cfg.channel],
                                             trace.valid),) + results["roi"]
     torch.cuda.synchronize()
-    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches")}
+    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+                "R": counter("ramp.launches")}
     log(f"[main] kernel launches in the offline run: {launches}, K2 on the "
         f"vectorised instance {counter('k2.vec')}")
     if min(launches.values()) < 1:
@@ -4883,6 +4955,22 @@ def main() -> int:
         log(f"[time] {k}: kernel {a:.3f} ms ({a * 1e3 / n:.3f} us/frame), "
             f"plain {b:.3f} ms ({b * 1e3 / n:.3f} us/frame)")
 
+    # The ramp kernel at the skin cell's shapes (a call's 8 recordings): the
+    # queue filled ahead, and its plain version.  Its launches in the record
+    # are the offline run's (phase 4), counted from 0 there.
+    rx, r_first, r_last = ramp["x"], ramp["n_first"], ramp["n_last"]
+    r_out = (torch.empty((r_last - r_first + 1, RAMP_S), device=dev),
+             torch.empty((r_last - r_first + 1, RAMP_S), dtype=torch.bool,
+                         device=dev))
+    ramp_ms = cuda_ms(lambda: vwin.ramp_bpm(rx, FPS, cfg.band, r_first,
+                                            r_last, out=r_out),
+                      reps=5, inner=10, queue_ahead=True)
+    ramp_plain = cuda_ms(lambda: vwin._ramp_bpm(rx, FPS, cfg.band, r_first,
+                                                r_last))
+    log(f"[time] ramp kernel at {T} x {RAMP_S} traces, lengths {r_first}.."
+        f"{r_last}: {ramp_ms:.4f} ms, the queue filled ahead; plain "
+        f"{ramp_plain:.3f} ms")
+
     # Least times for the timed work: bytes over 3.35 TB/s, operations (a
     # count per element, stated beside each) over 67 TFLOP/s.
     small = T * (12 + 4 + 16 + 2)          # K1's means, count, boxes, flags
@@ -4910,7 +4998,11 @@ def main() -> int:
         # launch; the operations of k5_ops, the 1x1 convs' in TF32 on the
         # tensor cores, the rest on the CUDA cores.
         "K5": bound(mp_run["k5"]["bytes"], mp_run["k5"]["ops"],
-                    mp_run["k5"]["conv_ops"])}
+                    mp_run["k5"]["conv_ops"]),
+        # The ramp: the traces in, bpm and valid out; two multiply-adds (re,
+        # im) a stream for every in-band (k, n) pair.
+        "R": bound(T * RAMP_S * 4 + (r_last - r_first + 1) * RAMP_S * 5,
+                   4 * RAMP_S * ramp_pairs(FPS, cfg.band, r_first, r_last))}
     for k, (b_ms, by) in bounds.items():
         log(f"[bound] {k}: {b_ms:.4f} ms ({by})")
     log("[bound] K5 with every operation on the CUDA cores: %.4f ms (%s)"
@@ -4940,10 +5032,12 @@ def main() -> int:
          evm_checks["k6_err"], evm_run["k6_ms"], evm_run["k6_plain"]),
         ("evm_reconstruct (K7)", "K7", "evm_recon.cu",
          "pallas_evm_recon.py:147", evm_checks["k7_err"], evm_run["k7_ms"],
-         evm_run["k7_plain"])]
+         evm_run["k7_plain"]),
+        ("ramp_dft (the acquisition ramp)", "R", "ramp_dft.cu", None,
+         ramp["err"], ramp_ms, ramp_plain)]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"vhr_tpu_torch/csrc/{src}",
-         "replaces": f"vhr_tpu/ops/{site}", "launches": launches[k],
+         "replaces": site and f"vhr_tpu/ops/{site}", "launches": launches[k],
          "max_abs_err": err, "ms": ms, "plain_ms": plain,
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None}

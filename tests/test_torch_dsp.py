@@ -38,7 +38,7 @@ from vhr_tpu.dsp import projections as jproj
 from vhr_tpu.dsp import spectral as jspectral
 from vhr_tpu.ops import windows as jwin
 
-from vhr_tpu_torch.config import BAND_ANALYSIS
+from vhr_tpu_torch.config import BAND_ANALYSIS, BAND_LIVE, BAND_VIDEO
 from vhr_tpu_torch.dsp import design, filters, ica, projections, spectral
 from vhr_tpu_torch.ops import windows as twin
 
@@ -177,6 +177,52 @@ def test_odd_ext_matches_jax():
 
 
 # --- spectral -------------------------------------------------------------
+
+@pytest.mark.parametrize("band", [BAND_VIDEO, BAND_LIVE, BAND_ANALYSIS],
+                         ids=["video", "live", "analysis"])
+@pytest.mark.parametrize("fps", [30.0, 29.97])
+@pytest.mark.parametrize("n", [3, 8, 9, 255, 256, 900])
+def test_band_grid_equals_the_hosts_bit_for_bit(n, fps, band):
+    """The peak pick's grid built where the spectrum lies
+    (``spectral._band_grid``) is ``_band_freqs``' numpy grid bit for bit:
+    the frequencies in float64 and cast to float32, the mask (Welch's
+    keeping the Nyquist bin), and whether any bin is in band."""
+    host_f, host_m = spectral._band_freqs(n, fps, band)
+    dev = torch.device("cpu")
+    f64, mask, in_band = spectral._band_grid(n, fps, band, dev, torch.float64)
+    assert torch.equal(f64.view(torch.int64),
+                       torch.as_tensor(host_f).view(torch.int64))
+    f32, mask32, _ = spectral._band_grid(n, fps, band, dev, torch.float32)
+    want = torch.as_tensor(host_f.astype(np.float32))
+    assert torch.equal(f32.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(mask, torch.as_tensor(host_m))
+    assert torch.equal(mask32, mask)
+    assert in_band == bool(host_m.any())
+    welch_m = (host_f >= band.low_hz) & (host_f <= band.high_hz)
+    _, mask_w, in_band_w = spectral._band_grid(n, fps, band, dev,
+                                               torch.float32,
+                                               keep_nyquist=True)
+    assert torch.equal(mask_w, torch.as_tensor(welch_m))
+    assert in_band_w == bool(welch_m.any())
+
+
+@pytest.mark.parametrize("band", [BAND_VIDEO, BAND_LIVE, BAND_ANALYSIS],
+                         ids=["video", "live", "analysis"])
+def test_band_grid_in_band_at_every_length(band):
+    """Whether any bin is in band, worked out from scalars in
+    ``spectral._band_grid``, is the host mask's ``any()`` at every length
+    up to 1,200 samples and at frame rates from 7.5 to 60 fps, for the FFT
+    grid and for Welch's (which keeps the Nyquist bin)."""
+    dev = torch.device("cpu")
+    for fps in (7.5, 10.0, 29.97, 30.0, 60.0):
+        for n in range(1, 1201):
+            host_f, host_m = spectral._band_freqs(n, fps, band)
+            welch_m = (host_f >= band.low_hz) & (host_f <= band.high_hz)
+            for keep, want in ((False, host_m), (True, welch_m)):
+                got = spectral._band_grid(n, fps, band, dev, torch.float32,
+                                          keep_nyquist=keep)[2]
+                assert got == bool(want.any()), (fps, n, keep)
+
 
 @pytest.mark.parametrize("targeted", [False, True])
 def test_band_snr_matches_jax(targeted):

@@ -1,4 +1,5 @@
-"""Kernels K1 to K7 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1 to K7 and the acquisition ramp's against their plain PyTorch
+versions on a CUDA card.
 
 These tests need the card (the CUDA kernels have no CPU mode) and skip
 without one.  The file imports no JAX, so it also runs where JAX is not
@@ -17,7 +18,9 @@ equal bit for bit.  K5 in float32 within
 in three TF32 passes that keep about 22 bits of each product, TF32 off in
 the plain version); in bfloat16 within one bf16 ulp of each value, or ``1e-5 *
 max|y|`` where that is larger (near zero the float32 rounding order alone
-decides the last bit).
+decides the last bit).  The ramp's ``valid`` equal, its ``bpm`` equal but
+where the plain version's top two in-band magnitudes lie within a relative
+``RAMP_TIE_RTOL`` (the same sums in another order).
 """
 
 import numpy as np
@@ -936,3 +939,129 @@ def test_k4_pool_on_four_places_equals_one(cuda):
                 np.testing.assert_array_equal(
                     np.asarray(getattr(got[s], f)),
                     np.asarray(getattr(want[s], f)), err_msg=f)
+
+
+# The ramp kernel (csrc/ramp_dft.cu) against the plain ``_ramp_bpm`` on the
+# card.  ``valid`` must be equal.  ``bpm`` must be equal except where the
+# plain version's top two in-band magnitudes lie within a relative 1e-5:
+# the kernel sums each bin in another order (lanes, then a warp's
+# shuffles, with fused multiply-adds), which can swap two near-equal bins.
+RAMP_TIE_RTOL = 1e-5
+
+
+def _ramp_signal(rng, T, batch, fps):
+    """Pulses of 50-170 BPM with noise, one per stream, ``(T, *batch)``."""
+    t = np.arange(T)[:, None] / fps
+    n = int(np.prod(batch)) if batch else 1
+    bpm = rng.uniform(50.0, 170.0, n)
+    x = (np.sin(2 * np.pi * bpm / 60.0 * t + rng.uniform(0, 6, n))
+         + 0.8 * rng.normal(size=(T, n)) + 100.0)
+    return x.astype(np.float32).reshape((T,) + tuple(batch))
+
+
+def _ramp_check(x, fps, band, n_first, n_last):
+    """The kernel's rows (written into given outputs, one launch) against
+    the plain version's on the card; returns both ``bpm``s and the
+    kernel's ``valid``."""
+    from vhr_tpu_torch.ops import windows as vwin
+
+    L = n_last - n_first + 1
+    bpm = torch.full((L,) + tuple(x.shape[1:]), -1.0, device=x.device)
+    valid = torch.ones(bpm.shape, dtype=torch.bool, device=x.device)
+    before = counter("ramp.launches")
+    vwin.ramp_bpm(x, fps, band, n_first, n_last, out=(bpm, valid))
+    assert counter("ramp.launches") == before + 1
+    want_bpm, want_valid = vwin._ramp_bpm(x, fps, band, n_first, n_last)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, want_valid)
+    differ = bpm != want_bpm
+    if differ.any():
+        ties = vwin._ramp_near_ties(x, fps, band, n_first, n_last,
+                                    RAMP_TIE_RTOL)
+        assert bool(ties[differ].all()), (
+            f"{int(differ.sum())} estimates differ, "
+            f"{int((differ & ~ties).sum())} of them not at a near tie")
+    return bpm, want_bpm, valid
+
+
+# name: (seed, T, batch, first and last length, fps, band)
+RAMP_CASES = {
+    "skin cell": (1, 960, (8,), 300, 900, 30.0, "analysis"),
+    "one stream": (2, 960, (), 300, 900, 30.0, "analysis"),
+    "two streams": (3, 400, (2,), 45, 300, 29.97, "analysis"),
+    "40 streams": (4, 300, (40,), 90, 300, 30.0, "analysis"),
+    "long shard 0": (5, 900, (), 300, 900, 30.0, "analysis"),
+    "short windows": (6, 20, (3,), 3, 10, 10.0, "analysis"),
+    "no bin in band": (7, 20, (3,), 3, 10, 30.0, "video"),
+    "zeros": (8, 300, (5,), 60, 300, 30.0, "analysis")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(RAMP_CASES))
+def test_ramp_kernel_matches_plain(cuda, case):
+    """One launch a call (``ramp.launches``): the skin cell's shapes (960
+    frames of 8 recordings, windows of 900, acquisition 300, 30 fps, the
+    analysis band), one 1-D trace, ``(T, 2)`` at 29.97 fps, 40 streams
+    (three tiles), the long measure's shard 0 (its last length the window,
+    ``T`` the window), ``W=10, A=3`` (the ``N < 8`` rule, every length
+    with a bin in band), a band with no bin at any length (bins 3-10 Hz
+    apart), and zeros (every magnitude 0: the first in-band bin)."""
+    from vhr_tpu_torch.config import BAND_ANALYSIS, BAND_VIDEO
+
+    seed, T, batch, n_first, n_last, fps, band = RAMP_CASES[case]
+    band = {"analysis": BAND_ANALYSIS, "video": BAND_VIDEO}[band]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(_ramp_signal(rng, T, batch, fps), device=cuda)
+    if case == "zeros":
+        x = torch.zeros_like(x)
+    bpm, want_bpm, valid = _ramp_check(x, fps, band, n_first, n_last)
+    if case == "no bin in band":
+        assert not valid.any() and not bpm.any()
+    if case == "short windows":
+        assert not valid[:8 - n_first].any() and valid[8 - n_first:].all()
+    if case == "zeros":
+        assert torch.equal(bpm, want_bpm)
+    if case == "skin cell":
+        assert bool(valid.all())
+
+
+@pytest.mark.gpu
+def test_ramp_kernel_takes_float32_only(cuda):
+    """A CUDA tensor of another dtype raises; there is no fallback."""
+    from vhr_tpu_torch.config import BAND_ANALYSIS
+    from vhr_tpu_torch.ops import windows as vwin
+
+    x = torch.zeros(64, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        vwin.rolling_bpm_fft(x, 30.0, BAND_ANALYSIS, 60, 30)
+
+
+@pytest.mark.gpu
+def test_skin_call_never_waits_on_the_card(cuda):
+    """The fused skin call at the skin cell's window and acquisition, once
+    warm, makes no synchronizing CUDA call (``set_sync_debug_mode`` raises
+    on one): K1, the fill, the ramp's one launch and the steady part's
+    grids all enqueue without waiting."""
+    from vhr_tpu_torch.config import PipelineConfig
+    from vhr_tpu_torch.parallel import mesh, streams
+
+    rng = np.random.default_rng(11)
+    frames = torch.as_tensor(rng.integers(0, 60, (2, 960, 64, 128, 3),
+                                          dtype=np.uint8), device=cuda)
+    frames[:, :, 16:48, 40:80] = torch.tensor([120, 150, 200], device=cuda,
+                                              dtype=torch.uint8)
+    m = mesh.stream_mesh([cuda])
+    warm = streams.multistream_green_bpm(frames, 30.0, m, PipelineConfig(),
+                                         use_fused=True)
+    torch.cuda.synchronize()
+    waits = counter("waits")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = streams.multistream_green_bpm(frames, 30.0, m,
+                                            PipelineConfig(), use_fused=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert counter("waits") == waits
+    for a, b in zip(got, warm):
+        assert torch.equal(a, b)

@@ -118,6 +118,90 @@ def test_rolling_bpm_fft_matches_jax():
                          estimator="music")
 
 
+@pytest.mark.parametrize("shape,n_first,n_last", [
+    ((120,), 3, 60), ((120, 3), 1, 90), ((64, 2, 2), 30, 64)])
+def test_ramp_entry_writes_the_plain_ramp(shape, n_first, n_last):
+    """The ramp's entry on a CPU tensor takes the plain version: its rows,
+    fresh or written into given outputs, one ``N`` each, equal the plain
+    ``_ramp_bpm``'s and a single length's own call; nothing waits on a
+    card and no kernel launches."""
+    rng = np.random.default_rng(n_last)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+    want = twin._ramp_bpm(x, FPS, BAND_ANALYSIS, n_first, n_last)
+    waits, launches = counter("waits"), counter("ramp.launches")
+    got = twin.ramp_bpm(x, FPS, BAND_ANALYSIS, n_first, n_last)
+    bpm = torch.full((n_last - n_first + 1,) + shape[1:], -1.0)
+    valid = torch.ones(bpm.shape, dtype=torch.bool)
+    twin.ramp_bpm(x, FPS, BAND_ANALYSIS, n_first, n_last, out=(bpm, valid))
+    assert counter("waits") == waits
+    assert counter("ramp.launches") == launches
+    for b, v in (got, (bpm, valid)):
+        assert torch.equal(b, want[0]) and torch.equal(v, want[1])
+    assert not want[1][:max(0, 8 - n_first)].any()
+    N = (n_first + n_last) // 2
+    one = twin._ramp_bpm(x[:N], FPS, BAND_ANALYSIS, N, N)
+    assert torch.equal(one[1][0], want[1][N - n_first])
+    assert torch.equal(one[0][0], want[0][N - n_first])
+
+
+@pytest.mark.parametrize("S,n_last,plan", [
+    (1, 900, (1, 1, 1, 900)), (2, 299, (2, 2, 1, 300)),
+    (8, 900, (8, 8, 1, 900)), (12, 900, (16, 12, 1, 900)),
+    (40, 900, (16, 14, 3, 900)), (8, 3000, (4, 4, 2, 3000)),
+    (3, 16384, (1, 1, 3, 16384))])
+def test_ramp_plan_fits_shared_memory(S, n_last, plan):
+    """The ramp kernel's launch from the stream count and the longest
+    length alone: a power of two of shared rows that fits a block,
+    balanced tiles of streams, a pitch of whole 16-byte vectors."""
+    from vhr_tpu_torch.ops.ramp_cuda import SMEM_BYTES, ramp_plan
+
+    got = ramp_plan(S, n_last)
+    assert tuple(got) == plan
+    assert got.tile * got.tiles >= S > got.tile * (got.tiles - 1)
+    assert got.rows * got.pitch * 4 <= SMEM_BYTES
+
+
+def test_ramp_kernel_refuses_what_it_cannot_take():
+    """The ramp kernel takes CUDA tensors only (no fallback) and lengths
+    that fit a block's shared memory."""
+    from vhr_tpu_torch.ops.ramp_cuda import ramp_bpm_cuda, ramp_plan
+
+    x = torch.zeros(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ramp_bpm_cuda(x, FPS, BAND_ANALYSIS, 1, 16, torch.zeros(16),
+                      torch.zeros(16, dtype=torch.bool))
+    for n_last in (16385, 60000):
+        with pytest.raises(ValueError, match="shared memory"):
+            ramp_plan(1, n_last)
+
+
+@pytest.mark.parametrize("case", ["one pulse", "two equal pulses", "zeros"])
+def test_ramp_near_ties_marks_what_a_reordered_sum_may_swap(case):
+    """``_ramp_near_ties`` (the ramp kernel's checks on the card) marks the
+    lengths whose plain top two in-band magnitudes lie within the relative
+    tolerance: none for one clean pulse, every one for all-zero traces
+    (every magnitude 0), and where two pulses of one amplitude meet."""
+    T, n_first, n_last = 300, 60, 300
+    t = np.arange(T)[:, None] / FPS
+    x = np.sin(2 * np.pi * 1.2 * t) + np.zeros((T, 2))
+    if case == "two equal pulses":
+        x = x + np.sin(2 * np.pi * 2.4 * t)
+    if case == "zeros":
+        x = np.zeros((T, 2))
+    x = torch.as_tensor(x.astype(np.float32))
+    ties = twin._ramp_near_ties(x, FPS, BAND_ANALYSIS, n_first, n_last, 1e-5)
+    assert ties.shape == (n_last - n_first + 1, 2) and ties.dtype == torch.bool
+    if case == "one pulse":
+        assert not ties.any()
+    elif case == "zeros":
+        assert ties.all()
+    else:
+        # Lengths of whole periods of both pulses put their bins' energy
+        # alike: N = 150, 175, 200, ... (multiples of 25 frames).
+        assert ties[[150 - n_first, 250 - n_first]].all()
+        assert not ties.all()
+
+
 @pytest.fixture(scope="module")
 def synth_clip():
     return synthesize(SynthSpec(duration_s=6.0, height=96, width=128,

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "vhr_fused_detect_roi_slots": ([_P] + [_I] * 7 + [_F, _I] + [_F] * 9
                                    + [_I] + [_P] * 9),
     "vhr_residual_stage": [_P, _P, _I] + [_P] * 9 + [_I] * 11 + [_P],
+    "vhr_ramp_dft": [_P] + [_I] * 5 + [_F] * 3 + [_I] * 2 + [_P] * 3,
 }
 
 

@@ -3,9 +3,11 @@
 Port of ``vhr_tpu/dsp/spectral.py``: the FFT peak (``estimate_bpm``,
 ``estimate_bpm_multichannel``, ``estimate_bpm_multichannel_exact``), the
 in-band SNR (``band_snr``) and the Welch PSD (``welch_psd``,
-``estimate_bpm_welch``).  Frequency grids, masks, windows and scales are
-worked out on the host, as in the JAX package.  The reference's ``None``
-returns stay a ``valid`` mask so the functions work on whole batches.
+``estimate_bpm_welch``).  Windows and scales are worked out on the host, as
+in the JAX package; the peak pick's frequency grids and band masks are
+built on the spectrum's device, the host's bit for bit, so that picking a
+peak never waits on the card.  The reference's ``None`` returns stay a
+``valid`` mask so the functions work on whole batches.
 
 ``nanmedian`` takes the mean of the two middle values of an even count, as
 ``jnp.nanmedian`` and ``jnp.median`` do (``torch.median`` returns the lower
@@ -21,7 +23,6 @@ import numpy as np
 import torch
 
 from ..config import HRBand
-from ..utils.profiling import wait
 
 __all__ = ["BPMEstimate", "bpm_peak_from_spectrum", "estimate_bpm",
            "estimate_bpm_multichannel", "estimate_bpm_multichannel_exact",
@@ -50,29 +51,51 @@ def _band_freqs(n: int, fs: float, band: HRBand) -> Tuple[np.ndarray, np.ndarray
     return freqs, mask
 
 
-def bpm_peak_from_spectrum(power: torch.Tensor, freqs: np.ndarray,
-                           mask: np.ndarray) -> BPMEstimate:
-    """Pick the dominant in-band frequency from a ``(..., F)`` power tensor."""
-    with wait("band freqs"):
-        freqs_t = torch.as_tensor(freqs, dtype=power.dtype,
-                                  device=power.device)
-    with wait("band mask"):
-        mask_t = torch.as_tensor(mask, device=power.device)
-    banded = torch.where(mask_t, power,
+def _band_grid(n: int, fs: float, band: HRBand, device: torch.device,
+               dtype: torch.dtype, keep_nyquist: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """:func:`_band_freqs`' frequencies (in ``dtype``) and mask, built on
+    ``device`` with no copy from the host, and whether any bin is in band.
+
+    ``np.fft.rfftfreq`` multiplies the bin numbers by ``1 / (n * (1 /
+    fs))`` in float64; a float64 product is rounded alike on every device
+    and in Python, so the grid is the host's bit for bit, and whether a bin
+    is in band is worked out from the first bin at or above the band's low
+    edge alone.  ``keep_nyquist`` keeps the Nyquist bin of an even ``n`` (a
+    Welch grid, scipy's).
+    """
+    step = 1.0 / (n * (1.0 / fs))
+    k_top = n // 2 if keep_nyquist else (n - 1) // 2
+    bins = torch.arange(n // 2 + 1, dtype=torch.float64, device=device)
+    freqs = bins * step
+    mask = (freqs >= band.low_hz) & (freqs <= band.high_hz) & (bins <= k_top)
+    k = max(0, math.floor(band.low_hz / step) - 1)
+    while k * step < band.low_hz:
+        k += 1
+    in_band = k <= k_top and k * step <= band.high_hz
+    return freqs.to(dtype), mask, in_band
+
+
+def bpm_peak_from_spectrum(power: torch.Tensor, freqs: torch.Tensor,
+                           mask: torch.Tensor,
+                           in_band: bool) -> BPMEstimate:
+    """Pick the dominant in-band frequency from a ``(..., F)`` power tensor
+    on the grid of :func:`_band_grid` (``in_band``: some bin is in band)."""
+    banded = torch.where(mask, power,
                          torch.full_like(power, float("-inf")))
     idx = torch.argmax(banded, dim=-1)
     peak = torch.gather(banded, -1, idx[..., None])[..., 0]
-    bpm = freqs_t[idx] * 60.0
-    valid = torch.full(bpm.shape, bool(mask.any()), device=power.device)
+    bpm = freqs[idx] * 60.0
+    valid = torch.full(bpm.shape, in_band, device=power.device)
     return BPMEstimate(bpm=bpm, valid=valid, peak_power=peak)
 
 
 def estimate_bpm(signal: torch.Tensor, fs: float, band: HRBand) -> BPMEstimate:
     """Single-channel FFT peak pick over the last axis of ``(..., T)``."""
     n = signal.shape[-1]
-    freqs, mask = _band_freqs(n, fs, band)
     spectrum = torch.abs(torch.fft.rfft(signal, dim=-1))
-    est = bpm_peak_from_spectrum(spectrum, freqs, mask)
+    est = bpm_peak_from_spectrum(
+        spectrum, *_band_grid(n, fs, band, signal.device, spectrum.dtype))
     if n < 8:  # the reference returns None below 8 samples
         est = est._replace(valid=torch.zeros_like(est.valid))
     return est
@@ -83,14 +106,14 @@ def estimate_bpm_multichannel(signal: torch.Tensor, fs: float,
     """Multichannel FFT peak over ``(..., T, C)``: per-channel in-band peak,
     the channel with the largest peak decides the BPM."""
     T = signal.shape[-2]
-    freqs, mask = _band_freqs(T, fs, band)
     mags = torch.abs(torch.fft.rfft(signal, dim=-2))             # (..., F, C)
-    per_chan = bpm_peak_from_spectrum(mags.transpose(-2, -1), freqs, mask)
+    freqs, mask, in_band = _band_grid(T, fs, band, signal.device, mags.dtype)
+    per_chan = bpm_peak_from_spectrum(mags.transpose(-2, -1), freqs, mask,
+                                      in_band)
     best = torch.argmax(per_chan.peak_power, dim=-1, keepdim=True)
     bpm = torch.gather(per_chan.bpm, -1, best)[..., 0]
     peak = torch.gather(per_chan.peak_power, -1, best)[..., 0]
-    valid = torch.full(bpm.shape, bool(mask.any()) and T >= 8,
-                       device=signal.device)
+    valid = torch.full(bpm.shape, in_band and T >= 8, device=signal.device)
     return BPMEstimate(bpm=bpm, valid=valid, peak_power=peak)
 
 
@@ -161,8 +184,7 @@ def band_snr(signal: torch.Tensor, fs: float, band: HRBand,
     given hypothesis (the adaptive selector's score).
     """
     n = signal.shape[-1]
-    freqs, mask = _band_freqs(n, fs, band)
-    mask_t = torch.as_tensor(mask, device=signal.device)
+    mask_t = _band_grid(n, fs, band, signal.device, signal.dtype)[1]
     x = signal - signal.mean(-1, keepdim=True)
     power = torch.abs(torch.fft.rfft(x, dim=-1)) ** 2
     banded = torch.where(mask_t, power, torch.zeros_like(power))
@@ -239,6 +261,8 @@ def estimate_bpm_welch(signal: torch.Tensor, fs: float, band: HRBand,
     ``segment_seconds`` Hann segments with 50% overlap, in-band peak."""
     T = signal.shape[-1]
     x = signal - signal.mean(-1, keepdim=True)
-    freqs, psd = welch_psd(x, fs, int(min(T, fs * segment_seconds)))
-    mask = (freqs >= band.low_hz) & (freqs <= band.high_hz)
-    return bpm_peak_from_spectrum(psd, freqs, mask)
+    nperseg = int(min(T, fs * segment_seconds))
+    _, psd = welch_psd(x, fs, nperseg)
+    return bpm_peak_from_spectrum(
+        psd, *_band_grid(nperseg, fs, band, psd.device, psd.dtype,
+                         keep_nyquist=True))

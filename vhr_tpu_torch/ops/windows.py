@@ -3,7 +3,8 @@
 Port of ``vhr_tpu/ops/windows.py``.  Frame ``i`` sees the deque
 ``signal[max(0, i-W+1) : i+1]``: while the deque grows (lengths A..W-1)
 an exact masked DFT evaluates every growing-length spectrum on its own
-frequency grid (the ramp); once full, one batched rfft over all length-W
+frequency grid (the ramp, one CUDA launch on the card:
+``ops/ramp_cuda.py``); once full, one batched rfft over all length-W
 windows (the steady part).  The Welch estimate and the in-band SNR run on
 full-length windows only.
 """
@@ -11,16 +12,17 @@ full-length windows only.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import HRBand
 from ..dsp import spectral
-from ..utils.profiling import span, wait
+from ..utils.profiling import span
+from .ramp_cuda import ramp_bpm_cuda
 
-__all__ = ["sliding_windows", "RollingBPM", "rolling_bpm_fft",
+__all__ = ["sliding_windows", "RollingBPM", "ramp_bpm", "rolling_bpm_fft",
            "rolling_bpm_welch", "rolling_bpm", "rolling_band_snr"]
 
 
@@ -37,27 +39,23 @@ class RollingBPM(NamedTuple):
     valid: torch.Tensor   # (T,) bool — False during acquisition / empty band
 
 
-def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
-              lengths: np.ndarray, chunk: int = 64) -> tuple:
-    """Exact DFT peak for growing windows ``x[:N]`` for each N in lengths.
-
-    ``x`` is ``(T, *batch)``; returns ``(bpm (L, *batch), valid (L,
-    *batch))``.  Evaluated ``chunk`` lengths at a time, so the ``(chunk, K,
-    N)`` angle tensor stays small.  The float32 expressions keep the JAX
-    order of operations.
-    """
-    w_max = int(lengths.max())
-    xs = x[:w_max].movedim(0, -1)                                  # (*b, n)
+def _ramp_chunks(x: torch.Tensor, fps: float, band: HRBand, n_first: int,
+                 n_last: int, chunk: int = 64):
+    """The plain ramp's spectra, ``chunk`` lengths at a time, so that the
+    ``(chunk, K, N)`` angle tensor stays small: yields the chunk's lengths
+    ``N`` ``(B, 1)``, ``banded`` ``(B, *batch, K)`` (the in-band bins'
+    magnitudes, ``-inf`` elsewhere), each bin's ``freq`` and whether it is
+    in band (``mask``), both ``(B, K)``.  The float32 expressions keep the
+    JAX order of operations."""
+    xs = x[:n_last].movedim(0, -1)                                 # (*b, n)
     bdims = (1,) * (xs.dim() - 1)
     dt, dev = x.dtype, x.device
-    n = torch.arange(w_max, dtype=dt, device=dev)
-    k_max = int(np.floor(band.high_hz * w_max / fps))
+    n = torch.arange(n_last, dtype=dt, device=dev)
+    k_max = int(np.floor(band.high_hz * n_last / fps))
     k = torch.arange(k_max + 1, dtype=dt, device=dev)
-    bpms, valids = [], []
-    for s in range(0, len(lengths), chunk):
-        with wait("ramp lengths"):
-            N = torch.as_tensor(lengths[s:s + chunk], dtype=dt,
-                                device=dev)[:, None]              # (B, 1)
+    for s in range(n_first, n_last + 1, chunk):
+        N = torch.arange(s, min(s + chunk, n_last + 1), dtype=dt,
+                         device=dev)[:, None]                      # (B, 1)
         Nb = N.reshape((-1,) + bdims + (1,))                      # (B, 1*, 1)
         keep = n < Nb                                              # (B,1*,n)
         mean = torch.where(keep, xs, 0.0).sum(-1, keepdim=True) / Nb
@@ -77,12 +75,70 @@ def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand,
                 & (k[None, :] >= 1.0) & (k[None, :] <= half))
         mask_b = mask.reshape((-1,) + bdims + mask.shape[1:])
         banded = torch.where(mask_b, mag, torch.full_like(mag, float("-inf")))
+        yield N, banded, freq, mask
+
+
+def _ramp_bpm(x: torch.Tensor, fps: float, band: HRBand, n_first: int,
+              n_last: int) -> tuple:
+    """Exact DFT peak for growing windows ``x[:N]``, ``N = n_first ..
+    n_last``: the plain version of the ramp kernel
+    (``ops/ramp_cuda.py``), on any device.
+
+    ``x`` is ``(T, *batch)``; returns ``(bpm (L, *batch), valid (L,
+    *batch))``, ``valid`` False below 8 samples (the reference's
+    estimate_bpm returns None there).
+    """
+    bdims = (1,) * (x.dim() - 1)
+    bpms, valids = [], []
+    for N, banded, freq, mask in _ramp_chunks(x, fps, band, n_first, n_last):
         idx = torch.argmax(banded, dim=-1)                         # (B, *b)
         freq_b = freq.reshape((-1,) + bdims + freq.shape[1:])
         bpms.append(torch.gather(freq_b.expand(banded.shape), -1,
                                  idx[..., None])[..., 0] * 60.0)
-        valids.append(mask_b.any(-1).expand(idx.shape))
+        ok = mask.any(-1) & (N[:, 0] >= 8.0)
+        valids.append(ok.reshape((-1,) + bdims).expand(idx.shape))
     return torch.cat(bpms), torch.cat(valids)
+
+
+def _ramp_near_ties(x: torch.Tensor, fps: float, band: HRBand, n_first: int,
+                    n_last: int, rtol: float) -> torch.Tensor:
+    """``(L, *batch)``: where the plain ramp's top two in-band magnitudes
+    lie within a relative ``rtol`` of each other (or it has fewer than two
+    bins), the estimates that sums taken in another order, as the ramp
+    kernel takes them, may pick otherwise."""
+    out = []
+    for _, banded, _, _ in _ramp_chunks(x, fps, band, n_first, n_last):
+        if banded.shape[-1] < 2:
+            out.append(torch.ones(banded.shape[:-1], dtype=torch.bool,
+                                  device=x.device))
+            continue
+        top = torch.topk(banded, 2, dim=-1).values
+        out.append(top[..., 0] - top[..., 1] <= rtol * top[..., 0].abs())
+    return torch.cat(out)
+
+
+def ramp_bpm(x: torch.Tensor, fps: float, band: HRBand, n_first: int,
+             n_last: int, out: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None) -> tuple:
+    """The growing windows' estimates ``(bpm, valid)``, each ``(L,
+    *batch)`` for ``N = n_first .. n_last``, written into ``out`` when
+    given: the ramp kernel on a CUDA tensor (one launch, no host wait), the
+    plain :func:`_ramp_bpm` on a CPU one."""
+    L = n_last - n_first + 1
+    if out is None:
+        shape = (L,) + tuple(x.shape[1:])
+        out = (torch.empty(shape, dtype=x.dtype, device=x.device),
+               torch.empty(shape, dtype=torch.bool, device=x.device))
+    bpm, valid = out
+    if x.device.type == "cpu":
+        r_bpm, r_valid = _ramp_bpm(x, fps, band, n_first, n_last)
+        bpm.copy_(r_bpm)
+        valid.copy_(r_valid)
+    elif x.device.type == "cuda":
+        ramp_bpm_cuda(x, fps, band, n_first, n_last, bpm, valid)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return bpm, valid
 
 
 def _windows_last(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -116,16 +172,9 @@ def rolling_bpm_fft(signal: torch.Tensor, fps: float, band: HRBand,
 
     ramp_end = min(window_len - 1, T - 1)
     if ramp_end >= first:
-        lengths = np.arange(first + 1, ramp_end + 2)
-        with span("vhr.estimate.ramp", lengths=len(lengths)):
-            r_bpm, r_valid = _ramp_bpm(x, fps, band, lengths)
-            # The reference's estimate_bpm returns None for N < 8.
-            with wait("ramp mask"):
-                long_enough = torch.as_tensor(lengths >= 8, device=x.device)
-            r_valid = r_valid & long_enough.reshape(
-                (-1,) + (1,) * (x.dim() - 1))
-            bpm[first:ramp_end + 1] = r_bpm
-            valid[first:ramp_end + 1] = r_valid
+        with span("vhr.estimate.ramp", lengths=ramp_end - first + 1):
+            ramp_bpm(x, fps, band, first + 1, ramp_end + 1,
+                     out=(bpm[first:ramp_end + 1], valid[first:ramp_end + 1]))
 
     if T >= window_len:
         with span("vhr.estimate.steady", windows=T - window_len + 1):

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from ..config import HRBand, PipelineConfig
@@ -204,10 +203,8 @@ def _rolling(xs: list, fps: float, band: HRBand, window_len: int,
         # lies on shard 0, whose frames are the recording's first: its
         # growing windows are rolling_bpm_fft's, lengths and all.
         if idx == 0 and first <= window_len - 2:
-            lengths = np.arange(first + 1, window_len + 1)
-            r_bpm, r_valid = vwin._ramp_bpm(xl, fps, band, lengths)
-            r_valid = r_valid & torch.as_tensor(lengths >= 8,
-                                                device=xl.device)
+            r_bpm, r_valid = vwin.ramp_bpm(xl, fps, band, first + 1,
+                                           window_len)
             bpm[first:window_len - 1] = r_bpm[:-1]
             valid[first:window_len - 1] = r_valid[:-1]
         bpms.append(bpm)
