@@ -263,3 +263,118 @@ def test_spans_on_the_profilers_clock(cuda):
           for iv in ivs]
     assert k1 and "vhr.k1" in dev
     assert any(x <= a and b <= y for a, b in k1 for x, y in dev["vhr.k1"])
+
+
+def _pool(device="cpu", slots=2):
+    from vhr_tpu_torch.pipeline.live import LiveConfig
+    from vhr_tpu_torch.serving import BpmServer
+
+    pool = BpmServer(LiveConfig(fps=FPS, use_fused=True, ring_len=60,
+                                welch_segment_seconds=1.0),
+                     n_slots=slots, device=device)
+    for _ in range(slots):
+        pool.attach()
+    return pool
+
+
+def _tick_all(pool, frames, t):
+    """One tick of every attached slot on its clip's frame ``t``, fetched
+    one tick behind, as the pool's front-end does: the handle."""
+    return pool.tick_async({s: frames[s, t] for s in pool.active_slots})
+
+
+def test_pool_counts_its_ticks_and_frames():
+    """``pool.ticks`` counts ticks and ``pool.frames`` the frames they
+    took, tracing off; a slot without a frame adds none."""
+    reset_counters("pool.ticks", "pool.frames")
+    pool = _pool(slots=3)
+    frames = _frames(3, 4)
+    for t in range(4):
+        given = {s: frames[s, t] for s in range(3) if not (s == 2 and t)}
+        pool.fetch(pool.tick_async(given))
+    assert counter("pool.ticks") == 4
+    assert counter("pool.frames") == 3 + 3 * 2
+    reset_counters("pool.ticks", "pool.frames")
+
+
+def test_pool_spans_nest_under_the_tick():
+    """Each tick is a request span ``vhr.pool.tick`` (``slots``, ``H``,
+    ``W``) holding the upload, the masks' upload (a ``vhr.wait``) and the
+    live tail; the fetch of the tick before it waits outside it."""
+    pool = _pool()
+    frames = _frames(2, 3)
+    prev = None
+    with tracing() as tr:
+        for t in range(3):
+            handle = _tick_all(pool, frames, t)
+            if prev is not None:
+                pool.fetch(prev)
+            prev = handle
+        pool.fetch(prev)
+    ticks = [s for s in tr.spans if s.name == "vhr.pool.tick"]
+    assert len(ticks) == 3
+    assert len({s.request for s in ticks}) == 3 and None not in {
+        s.request for s in ticks}
+    for tick in ticks:
+        assert tick.attrs == {"slots": 2, "H": 64, "W": 128}
+        # ``waits`` goes to the span open where the wait starts.
+        assert tick.counts == {"pool.ticks": 1, "pool.frames": 2,
+                               "waits": 1}
+        mine = [s for s in tr.spans if s.request == tick.request]
+        kids = {s.name: s for s in mine if s.parent == tick.id}
+        assert set(kids) == {"vhr.pool.upload", "vhr.wait",
+                             "vhr.pool.finish"}
+        assert kids["vhr.pool.upload"].attrs == {"bytes": 2 * 64 * 128 * 3,
+                                                 "on_card": 0}
+        assert kids["vhr.wait"].attrs == {"what": "pool masks"}
+        for s in mine:
+            assert tick.start_ns <= s.start_ns <= s.end_ns <= tick.end_ns
+    fetches = [s for s in tr.spans if s.name == "vhr.wait"
+               and s.attrs["what"] == "pool fetch"]
+    assert len(fetches) == 3 and all(s.parent is None for s in fetches)
+    assert tr.counts["waits"] == 6
+
+
+@pytest.mark.gpu
+def test_every_wait_of_a_pool_tick_is_marked(cuda):
+    """On the card, a warm fused tick of frames already there, fetched one
+    tick behind: each synchronizing CUDA call (``set_sync_debug_mode``
+    warns on one) happens inside a ``vhr.wait`` span, and K4's launch is
+    the span ``vhr.k4`` inside the tick."""
+    import warnings
+
+    pool = _pool(cuda, slots=4)
+    frames = _frames(4, 6, device=cuda)
+    pool.fetch(_tick_all(pool, frames, 0))
+    torch.cuda.synchronize()
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        st = profiling._stack()
+        sites.append(st[-1].name if st else None)
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            with tracing() as tr:
+                prev = None
+                for t in range(1, 6):
+                    handle = _tick_all(pool, frames, t)
+                    if prev is not None:
+                        pool.fetch(prev)
+                    prev = handle
+                pool.fetch(prev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sites and all(name == "vhr.wait" for name in sites), sites
+    k4 = [s for s in tr.spans if s.name == "vhr.k4"]
+    by_id = {s.id: s for s in tr.spans}
+    assert len(k4) == 5
+    assert all(s.attrs == {"S": 4, "H": 64, "W": 128, "pool": 1}
+               for s in k4)
+    for s in k4:
+        while s.parent is not None:
+            s = by_id[s.parent]
+        assert s.name == "vhr.pool.tick"

@@ -466,16 +466,18 @@ def fused_detect_roi_slots(frames: torch.Tensor, carry: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _zero_scratch(dev, stream, S * (7 + g.W // 16 + g.H))
-    profiling.count("k4.launches")          # CUDA tensors only
-    err = lib.vhr_fused_detect_roi_slots(
-        frames.data_ptr(), S, g.H, g.W, g.rb, detect_row_pool, detect_every,
-        int(gate_margin is not None),
-        0.0 if gate_margin is None else gate_margin, rescan_every,
-        float(g.min_area), det.cb_min, det.cb_max, det.cr_min, det.cr_max,
-        det.y_min, roi.cheek_horizontal, roi.cheek_top, roi.cheek_bottom,
-        roi.landmark_hold_frames, carry.data_ptr(), phase.data_ptr(),
-        carry_out.data_ptr(), scratch.data_ptr(), boxes.data_ptr(),
-        valid.data_ptr(), means.data_ptr(), count.data_ptr(), stream)
+    with profiling.span("vhr.k4", S=S, H=g.H, W=g.W, pool=detect_row_pool):
+        profiling.count("k4.launches")      # CUDA tensors only
+        err = lib.vhr_fused_detect_roi_slots(
+            frames.data_ptr(), S, g.H, g.W, g.rb, detect_row_pool,
+            detect_every, int(gate_margin is not None),
+            0.0 if gate_margin is None else gate_margin, rescan_every,
+            float(g.min_area), det.cb_min, det.cb_max, det.cr_min,
+            det.cr_max, det.y_min, roi.cheek_horizontal, roi.cheek_top,
+            roi.cheek_bottom, roi.landmark_hold_frames, carry.data_ptr(),
+            phase.data_ptr(), carry_out.data_ptr(), scratch.data_ptr(),
+            boxes.data_ptr(), valid.data_ptr(), means.data_ptr(),
+            count.data_ptr(), stream)
     _build.check(err, "fused_detect_roi_slots")
     res = FusedResult(means=means, count=count, boxes=boxes,
                       det_valid=valid[0], roi_valid=valid[1])

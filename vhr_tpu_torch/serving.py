@@ -54,6 +54,7 @@ import dataclasses
 import hashlib
 import hmac
 import json
+import math
 import os
 import queue
 import socket
@@ -76,6 +77,7 @@ from .pipeline.live import (DetectorFn, LiveConfig, LiveOutput, LiveState,
                             _finish_batched, _fused_track, _multi_update,
                             _skin_track, _sos, _zero_multi_state,
                             _zero_state, pack_output, unpack_output)
+from .utils.profiling import count, request, span, wait
 
 __all__ = ["BpmServer", "init_state_batched", "serve_forever", "BpmClient",
            "WsBpmClient"]
@@ -127,7 +129,9 @@ def _step_batched_impl(state, frames: torch.Tensor,
     else:
         parts = _skin_track(state, frames, active & pool_attempt, active,
                             cfg, detector, pool_attempt)
-    new_state, out = _finish_batched(state, cfg, _sos(cfg), active, *parts)
+    with span("vhr.pool.finish"):
+        new_state, out = _finish_batched(state, cfg, _sos(cfg), active,
+                                         *parts)
     return new_state, pack_output(out)
 
 
@@ -344,7 +348,10 @@ class BpmServer:
             raise ValueError(f"pool frame geometry is {self._frame_shape}; "
                              f"got {shape} (resize before the pool)")
         active = np.zeros((self.n_slots,), bool)
-        with self._lock:
+        with self._lock, request("vhr.pool.tick", slots=len(frames),
+                                 H=shape[0], W=shape[1]):
+            count("pool.ticks")
+            count("pool.frames", len(frames))
             for s in frames:
                 if not self._attached[s]:
                     raise KeyError(f"slot {s} is not attached")
@@ -354,8 +361,10 @@ class BpmServer:
             batches = self._upload(frames, shape, active)
             packed = []
             for i, ((sl, d), batch) in enumerate(zip(self._parts, batches)):
-                masks = torch.from_numpy(np.stack([active[sl], reset[sl]])
-                                         ).to(d, non_blocking=True)
+                # From pageable host memory: the copy waits for the card.
+                with wait("pool masks"):
+                    masks = torch.from_numpy(np.stack([active[sl], reset[sl]])
+                                             ).to(d, non_blocking=True)
                 self._states[i], out = _step_batched_impl(
                     self._states[i], batch, masks[0], masks[1],
                     self._tick_count, self.cfg, self._detector,
@@ -371,45 +380,48 @@ class BpmServer:
         place = {s: d for sl, d in self._parts
                  for s in range(sl.start, sl.stop)}
         local = {s: f for s, f in frames.items() if s in place}
-        if self.device.type == "cpu":
+        on_card = {} if self.device.type == "cpu" else {
+            s: f for s, f in local.items()
+            if isinstance(f, torch.Tensor) and f.device == place[s]}
+        with span("vhr.pool.upload", bytes=len(local) * math.prod(shape),
+                  on_card=len(on_card)):
+            if self.device.type == "cpu":
+                out = []
+                for sl, _ in self._parts:
+                    batch = torch.zeros((sl.stop - sl.start,) + shape,
+                                        dtype=torch.uint8)
+                    for s in range(sl.start, sl.stop):
+                        if s in local:
+                            _put(batch[s - sl.start], local[s])
+                    out.append(batch)
+                return out
+            host = {s: f for s, f in local.items() if s not in on_card}
+            buf = None
+            if host:
+                buf, events = self._pinned_buffer(shape)
+                for s in place:
+                    if s in host:
+                        _put(buf[s], host[s])
+                    elif not active[s]:
+                        buf[s].zero_()
             out = []
-            for sl, _ in self._parts:
-                batch = torch.zeros((sl.stop - sl.start,) + shape,
-                                    dtype=torch.uint8)
+            for sl, d in self._parts:
+                if buf is not None:
+                    batch = buf[sl].to(d, non_blocking=True)
+                else:
+                    batch = torch.empty((sl.stop - sl.start,) + shape,
+                                        dtype=torch.uint8, device=d)
+                    for s in np.flatnonzero(~active[sl]):
+                        batch[s].zero_()
                 for s in range(sl.start, sl.stop):
-                    if s in local:
-                        _put(batch[s - sl.start], local[s])
+                    if s in on_card:
+                        batch[s - sl.start].copy_(on_card[s])
                 out.append(batch)
-            return out
-        on_card = {s: f for s, f in local.items()
-                   if isinstance(f, torch.Tensor) and f.device == place[s]}
-        host = {s: f for s, f in local.items() if s not in on_card}
-        buf = None
-        if host:
-            buf, events = self._pinned_buffer(shape)
-            for s in place:
-                if s in host:
-                    _put(buf[s], host[s])
-                elif not active[s]:
-                    buf[s].zero_()
-        out = []
-        for sl, d in self._parts:
             if buf is not None:
-                batch = buf[sl].to(d, non_blocking=True)
-            else:
-                batch = torch.empty((sl.stop - sl.start,) + shape,
-                                    dtype=torch.uint8, device=d)
-                for s in np.flatnonzero(~active[sl]):
-                    batch[s].zero_()
-            for s in range(sl.start, sl.stop):
-                if s in on_card:
-                    batch[s - sl.start].copy_(on_card[s])
-            out.append(batch)
-        if buf is not None:
-            for d, ev in events.items():
-                ev.record(torch.cuda.current_stream(d))
-            self._turn ^= 1
-        return out
+                for d, ev in events.items():
+                    ev.record(torch.cuda.current_stream(d))
+                self._turn ^= 1
+            return out
 
     def _pinned_buffer(self, shape: tuple):
         """This turn's pinned ``(S,) + shape`` buffer, once the copies that
@@ -422,8 +434,9 @@ class BpmServer:
                  {d: torch.cuda.Event() for d in devices})
                 for _ in range(2)]
         buf, events = self._pinned[self._turn]
-        for ev in events.values():
-            ev.synchronize()
+        with wait("pinned buffer"):
+            for ev in events.values():
+                ev.synchronize()
         return buf, events
 
     def fetch(self, handle) -> Dict[int, LiveOutput]:
@@ -435,7 +448,9 @@ class BpmServer:
         slots, packed = handle
         local = (packed[0] if len(packed) == 1 else
                  torch.cat([p.to(self.device) for p in packed]))
-        a = gather_streams(local) if self._multiproc else local.cpu().numpy()
+        with wait("pool fetch"):
+            a = gather_streams(local) if self._multiproc \
+                else local.cpu().numpy()
         return {s: unpack_output(a[s]) for s in slots}
 
 
